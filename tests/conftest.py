@@ -129,3 +129,11 @@ except ImportError:
 
     sys.modules["hypothesis"] = _hyp
     sys.modules["hypothesis.strategies"] = _st
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs an NVIDIA GPU (CUDA kernels of the PyTorch port); skipped "
+        "without one. Run on the card: python -m pytest -q -m gpu "
+        "tests/test_torch_gpu.py")
