@@ -1,15 +1,18 @@
-"""Model converter — BMXNet §2.2.3 (PyTorch port of the 1-bit dense part
-of ``repro.core.converter``).
+"""Model converter — BMXNet §2.2.3 (PyTorch port of the dense part of
+``repro.core.converter``).
 
 Walks a float checkpoint (a nested dict/list of tensors) and, for every
-dense layer the :class:`QuantPolicy` marks binary, replaces the float weight
-``w (d_in, d_out)`` with ``w_packed (d_out, Kw)`` int32 sign words packed
-along the contraction axis (the layout the xnor kernels want), plus an
-optional per-output-channel ``scale`` (XNOR-Net alpha).  Everything else
-(embedding, norms, biases) is left untouched.  ``convert`` returns the new
-tree and a :class:`SizeReport` with the paper's accounting.
+dense layer the :class:`QuantPolicy` marks packable, replaces the float
+weight ``w (d_in, d_out)`` with ``w_packed`` packed along the contraction
+axis (the layout the GEMM kernels want): ``(d_out, Kw)`` int32 sign words at
+1 bit, or a ``(w_bits, d_out, Kw)`` int32 bit-plane stack of DoReFa weight
+codes at 2..8 bits (the codes of the whole layer tensor, as the fake-quant
+path quantizes it).  An optional per-output-channel ``scale`` (XNOR-Net
+alpha) rides along.  Everything else (embedding, norms, biases) is left
+untouched.  ``convert`` returns the new tree and a :class:`SizeReport` with
+the paper's accounting (k/32 of the fp32 bytes at k bits).
 
-Expert stacks, conv weights and k-bit plane stacks wait for later slices.
+Expert stacks and conv weights wait for slices 4 and 5.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.core import bitpack
+from repro_torch.core import bitpack, quant
 from repro_torch.core.policy import QuantPolicy, QuantSpec
 
 Pytree = Any
@@ -67,19 +70,26 @@ def _fp32_bytes(x: torch.Tensor) -> int:
 
 
 def _packable(spec: QuantSpec) -> bool:
-    """Does a packed serving layout exist for this spec?  1-bit here; the
-    DoReFa plane family (2..8 bits) comes with slice 2."""
+    """Does a packed serving layout exist for this spec?  1-bit (xnor) or
+    the plane-packed DoReFa family (both widths in 2..8; wider stays
+    fake-quantized)."""
     if spec.is_binary and spec.a_bits == 1:
         return True
-    if 2 <= spec.w_bits <= 8 and 2 <= spec.a_bits <= 8:
-        raise NotImplementedError(
-            "k-bit plane packing comes with slice 2 of the port")
-    return False
+    return 2 <= spec.w_bits <= 8 and 2 <= spec.a_bits <= 8
+
+
+def _pack_flat(flat: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
+    """(d_out, K) float -> packed words: sign bits at 1 bit, a (w_bits,
+    d_out, Kw) plane stack of DoReFa weight codes at k bits."""
+    if spec.is_binary:
+        return bitpack.pack_sign(flat)
+    return bitpack.pack_planes(quant.weight_codes(flat, spec.w_bits),
+                               spec.w_bits)
 
 
 def convert(params: Pytree, policy: QuantPolicy, *,
             keep_float: bool = False) -> tuple[Pytree, SizeReport]:
-    """Pack all binary-policy dense weights.  ``keep_float`` additionally
+    """Pack all packable-policy dense weights.  ``keep_float`` additionally
     retains the float weight next to the packed one."""
     report = SizeReport(leaves=[])
 
@@ -108,7 +118,7 @@ def convert(params: Pytree, policy: QuantPolicy, *,
 def _pack_layer(node, path, spec: QuantSpec, report: SizeReport,
                 keep_float: bool):
     w = node["w"]  # (d_in, d_out)
-    w_packed = bitpack.pack_sign(w.to(torch.float32).T)  # (d_out, Kw)
+    w_packed = _pack_flat(w.to(torch.float32).T, spec)  # (.., d_out, Kw)
     out = {"w_packed": w_packed}
     if spec.scale:
         out["scale"] = w.abs().mean(dim=0)

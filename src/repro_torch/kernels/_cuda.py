@@ -29,20 +29,24 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("pack_sign.cu", "xnor_mismatch.cu", "xnor_dot_mxu.cu")
+SOURCES = ("pack_sign.cu", "xnor_mismatch.cu", "xnor_dot_mxu.cu",
+           "quant_pack_planes.cu", "kbit_plane_gemm.cu", "kbit_mxu_gemm.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# name -> (argument types after the pointers); every launcher is
-# (ptr..., int64 dims..., stream) -> int
+# name -> argument types before the stream; every launcher is
+# (ptr..., int64 dims..., int plane counts..., stream) -> int
+_PTRS, _DIMS = ctypes.c_void_p, ctypes.c_longlong
 _PROTOTYPES = {
-    "repro_pack_sign": 2 * [ctypes.c_void_p] + 3 * [ctypes.c_longlong],
-    "repro_xnor_mismatch": 3 * [ctypes.c_void_p] + 3 * [ctypes.c_longlong],
-    "repro_xnor_dot_mxu": 3 * [ctypes.c_void_p] + 3 * [ctypes.c_longlong],
+    "repro_pack_sign": 2 * [_PTRS] + 3 * [_DIMS],
+    "repro_xnor_mismatch": 3 * [_PTRS] + 3 * [_DIMS],
+    "repro_xnor_dot_mxu": 3 * [_PTRS] + 3 * [_DIMS],
+    "repro_quant_pack_planes": 3 * [_PTRS] + 3 * [_DIMS] + [ctypes.c_int],
+    "repro_kbit_plane_gemm": 3 * [_PTRS] + 3 * [_DIMS] + 2 * [ctypes.c_int],
+    "repro_kbit_mxu_gemm": 3 * [_PTRS] + 3 * [_DIMS] + 2 * [ctypes.c_int],
 }
 
-LAUNCHES: dict[str, int] = {"pack_sign": 0, "xnor_mismatch": 0,
-                            "xnor_dot_mxu": 0}
+LAUNCHES: dict[str, int] = {name[len("repro_"):]: 0 for name in _PROTOTYPES}
 
 
 def reset_launches() -> None:

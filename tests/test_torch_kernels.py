@@ -136,9 +136,12 @@ def test_dispatch_resolution_and_refusals():
         assert (got.scale, got.xnor_range, got.bias) == (
             want.scale, want.xnor_range, want.bias)
     with pytest.raises(ValueError, match="unknown gemm backend"):
-        dispatch.get_backend("xla")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        dispatch.resolve_backend("vpu", 4)
+        dispatch.get_backend("shard-vpu")
+    for name, w_bits in (("vpu", 4), ("mxu", 8), ("vpu", 3), ("xla", 1),
+                         ("mxu-k4", 1)):
+        assert (dispatch.resolve_backend(name, w_bits)
+                == jdispatch.resolve_backend(name, w_bits))
+    assert dispatch.get_backend("xla").prologue == "float"
     with pytest.raises(ValueError, match="k_true"):
         dispatch.quant_gemm(torch.zeros((2, 8)), torch.zeros((3, 1),
                             dtype=torch.int32), k_true=9)

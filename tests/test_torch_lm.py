@@ -2,10 +2,11 @@
 model's prefill / decode / forward logits, from the JAX package's own numpy
 params loaded into both.
 
-Tolerance: fp32, rtol = atol = 1e-4.  The integer ±1 GEMMs are exact in
-both packages, but the float ops around them (norms, RoPE, softmax, the
-attention and tied-embedding einsums) reduce in another order in XLA and in
-PyTorch, so logits agree to a few ulp of their magnitude, not bit for bit.
+Tolerance: fp32, rtol = atol = 1e-4.  The integer GEMMs (±1 and DoReFa
+k-bit codes) are exact in both packages, but the float ops around them
+(norms, RoPE, softmax, the attention and tied-embedding einsums, the k-bit
+dequant) round in another order in XLA and in PyTorch, so logits agree to a
+few ulp of their magnitude, not bit for bit.
 
 Denormals: XLA's CPU backend flushes them to zero, PyTorch's CPU kernels
 keep them.  In a binarized model that matters: a softmax weight that
@@ -40,10 +41,17 @@ CACHE_LEN = 16
 
 @pytest.fixture(autouse=True)
 def flush_denormals():
-    """Match XLA's CPU denormal flush (module docstring) for one test."""
+    """Match XLA's CPU denormal flush (module docstring) for one test.
+    ``set_flush_denormal`` sets the flag of the calling thread only, and
+    PyTorch's intra-op worker threads keep the floating-point environment
+    they were started with (an earlier test may have started them without
+    the flush), so the test computes on the calling thread alone."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
     torch.set_flush_denormal(True)
     yield
     torch.set_flush_denormal(False)
+    torch.set_num_threads(threads)
 
 
 def _setup(quant: str, backend: str = "vpu"):
@@ -51,8 +59,13 @@ def _setup(quant: str, backend: str = "vpu"):
     jcfg = jregistry.get("granite-3-2b").smoke
     cfg = registry.get("granite-3-2b").smoke
     host = jax.tree.map(np.asarray, jlm.init(jax.random.PRNGKey(1), jcfg))
+    quant, _, width = quant.partition("-")  # e.g. "packed-w4a4"
     if quant == "fp":
         jpol, pol = JQuantPolicy.full_precision(), QuantPolicy.full_precision()
+    elif width:
+        w_bits, a_bits = map(int, width[1:].split("a"))
+        jpol = JQuantPolicy.quantized(w_bits, a_bits)
+        pol = QuantPolicy.quantized(w_bits, a_bits)
     else:
         jpol, pol = JQuantPolicy.binary(), QuantPolicy.binary()
     if quant == "packed":
@@ -85,7 +98,10 @@ def test_configs_match_jax():
 
 @pytest.mark.parametrize("quant,backend", [("fp", "vpu"), ("fakequant", "vpu"),
                                            ("packed", "vpu"),
-                                           ("packed", "mxu")])
+                                           ("packed", "mxu"),
+                                           ("fakequant-w4a4", "vpu"),
+                                           ("packed-w4a4", "vpu"),
+                                           ("packed-w4a4", "mxu")])
 def test_prefill_and_decode_logits_match_jax(quant, backend):
     jp, tp, jctx, ctx, jcfg, cfg = _setup(quant, backend)
     tokens = np.random.default_rng(0).integers(0, jcfg.vocab_size, (2, 7))

@@ -35,9 +35,17 @@ LENS = (5, 5, 8, 3, 8, 5)  # FIFO same-length runs + recycling on 2 slots
 
 @pytest.fixture(autouse=True)
 def flush_denormals():
+    """Match XLA's CPU denormal flush (module docstring) for one test.
+    ``set_flush_denormal`` sets the flag of the calling thread only, and
+    PyTorch's intra-op worker threads keep the floating-point environment
+    they were started with (an earlier test may have started them without
+    the flush), so the test computes on the calling thread alone."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
     torch.set_flush_denormal(True)
     yield
     torch.set_flush_denormal(False)
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -53,9 +61,19 @@ def smoke():
     return host, packed, prompts
 
 
-def _port_engine(params, backend, **ecfg):
+@pytest.fixture(scope="module")
+def smoke_w4a4(smoke):
+    """The smoke params converted to DoReFa w4a4 plane stacks by the JAX
+    converter (numpy)."""
+    host, _, prompts = smoke
+    packed, _ = jconverter.convert(host, JQuantPolicy.quantized(4))
+    return jax.tree.map(np.asarray, packed), prompts
+
+
+def _port_engine(params, backend, policy=None, **ecfg):
     spec = registry.get("granite-3-2b")
-    ctx = QCtx(policy=QuantPolicy.binary(), compute_dtype=torch.float32,
+    ctx = QCtx(policy=policy or QuantPolicy.binary(),
+               compute_dtype=torch.float32,
                gemm_config=GemmConfig(backend=backend))
     return engine.Engine(spec, spec.smoke, ctx, params,
                          engine.EngineConfig(**ecfg))
@@ -86,6 +104,27 @@ def test_scheduler_greedy_streams_match_jax(smoke, backend):
         np.testing.assert_array_equal(got[rid], want[rid])
     assert (stats.steps, stats.prefills, stats.admissions) == (
         jstats.steps, jstats.prefills, jstats.admissions)
+
+
+@pytest.mark.parametrize("backend", ["vpu", "mxu"])
+def test_scheduler_w4a4_greedy_streams_match_jax(smoke_w4a4, backend):
+    """DoReFa w4a4 packed serving (``vpu`` -> ``vpu-k4``, ``mxu`` ->
+    ``mxu-k4``): the port's greedy streams equal the JAX package's."""
+    packed, prompts = smoke_w4a4
+    spec = jregistry.get("granite-3-2b")
+    jctx = JQCtx(policy=JQuantPolicy.quantized(4), compute_dtype=jnp.float32,
+                 gemm_config=JGemmConfig(backend=backend))
+    ecfg = dict(batch=2, cache_len=24, max_new_tokens=5)
+    jeng = jengine.Engine(spec, spec.smoke, jctx,
+                          jax.tree.map(jnp.asarray, packed),
+                          jengine.EngineConfig(**ecfg))
+    want, _ = _run(jengine, jeng, prompts)
+    teng = _port_engine(params_from_numpy(packed, "cpu"), backend,
+                        QuantPolicy.quantized(4), **ecfg)
+    got, _ = _run(engine, teng, prompts)
+    assert sorted(got) == sorted(want) == list(range(len(prompts)))
+    for rid in want:
+        np.testing.assert_array_equal(got[rid], want[rid])
 
 
 def test_scheduler_packed_equals_fakequant_on_port(smoke):
@@ -190,3 +229,21 @@ def test_serve_launcher_checks_fakequant(backend, capsys):
                           "--check-fakequant"])
     assert sorted(out) == [0, 1] and all(len(v) == 3 for v in out.values())
     assert "packed == fake-quant: True" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("backend", ["vpu", "mxu"])
+def test_serve_launcher_kbit_checks_fakequant(backend, capsys):
+    out = serve_cli.main(["--arch", "granite-3-2b", "--smoke", "--device",
+                          "cpu", "--quant", "w4a4", "--backend", backend,
+                          "--layers", "1", "--prompts", "2", "--prompt-len",
+                          "4", "--new-tokens", "3", "--cache-len", "16",
+                          "--check-fakequant"])
+    assert sorted(out) == [0, 1] and all(len(v) == 3 for v in out.values())
+    text = capsys.readouterr().out
+    assert "quant w4a4" in text and "(7 layers packed)" in text
+    assert "packed == fake-quant: True (6 of 6 tokens agree" in text
+    assert serve_cli.stream_agreement(
+        {0: np.array([1, 2, 3])}, {0: np.array([1, 5, 3])}) == (2, 3, 1)
+    assert serve_cli.parse_quant("w4a8") == QuantPolicy.quantized(4, 8)
+    with pytest.raises(ValueError, match="bad quant"):
+        serve_cli.parse_quant("int4")
