@@ -3,7 +3,9 @@
 GPU: builds the hand-written Hopper kernels from the sources in this
 checkout, holds each against its plain PyTorch version, times them, and
 serves granite-3-2b at full width through the continuous-batching
-scheduler on those kernels, packed 1-bit and packed DoReFa w4a4.
+scheduler on those kernels: packed 1-bit and packed DoReFa w4a4 on the
+contiguous cache, and packed 1-bit on the paged cache with chunked prefill,
+shared prefixes and the flash-decode kernel at every KV tier.
 
     python3 chip_smoke.py            # needs one CUDA GPU (sm_90a) and nvcc
 
@@ -11,26 +13,42 @@ Phases (any failure exits non-zero before the result line):
 
 1. environment: the card's name and power limit, torch / CUDA versions,
    the kernel build (time and the compiler's register report);
-2. kernel parity, exact int32, at the main path's GEMM shapes (decode batch
-   and prefill rows) and ragged ones: sign-pack (K1), xnor-popcount (K2)
-   and int8-unpack (K3) against their plain versions; quantize-plane-pack
+2. kernel parity against the plain versions: exact int32 at the main
+   path's GEMM shapes (decode batch and prefill rows) and ragged ones for
+   sign-pack (K1), xnor-popcount (K2), int8-unpack (K3), quantize-plane-pack
    (K4) with rounding ties and range edges, plane AND-popcount (K5) and
-   code-lane ``mma`` (K6) against theirs, and K5 == K6, at plane counts
-   (2,2), (4,4), (8,8) and (8,4);
+   code-lane ``mma`` (K6), and K5 == K6 at plane counts (2,2), (4,4), (8,8)
+   and (8,4); flash-decode (K11) within 2e-5 on rows that see a key, over
+   fp32 / bf16 / int8 / 1-bit pools, paged and contiguous, C 1/4/256, G 1/4,
+   Dh 64/128, softcap and window on and off, ragged slots, a -1 table entry
+   and an unmapped slot (exact zeros);
 3. timing: each kernel, its plain version and one PyTorch yardstick call
    (bf16 ``torch.matmul`` of the ±1 operands for K2/K3, of the dequantized
-   DoReFa operands for K5/K6; none for K1/K4) at the main-path shapes,
-   w4a4 and w8a8 for K4-K6, with the least time the card could take
-   (``bound_ms``: for a GEMM, that of its function, the integer dot of the
-   codes, on the int8 tensor cores, whichever kernel computes it; K2/K5's
-   popcount ceiling is printed beside it);
+   DoReFa operands for K5/K6; ``scaled_dot_product_attention`` on the
+   gathered dense K/V for K11; none for K1/K4) at the main-path shapes,
+   w4a4 and w8a8 for K4-K6, K11 at decode and a 256-token prefill window
+   per pool tier, with the least time the card could take (``bound_ms``:
+   for a GEMM, that of its function, the integer dot of the codes, on the
+   int8 tensor cores, whichever kernel computes it; K2/K5's popcount
+   ceiling is printed beside it; for K11 the admitted rows' bytes or its
+   fp32 operations);
 4. serving: granite-3-2b at full width (d_model 2048, 32/8 heads, d_ff 8192,
    vocab 49155 padded to 49408), all 40 layers, params from a seeded
-   ``torch.Generator`` on the card, 8 requests of mixed prompt length on 4
-   slots, each run with its kernel counts set to 0 just before it and read
-   just after:
-   - 1-bit (``QuantPolicy.binary()``): packed ``vpu``, packed ``mxu`` and
-     fake-quant; the greedy streams must be identical (paper §2.2.2);
+   ``torch.Generator`` on the card, each run with its kernel counts set to
+   0 just before it and read just after:
+   - 8 requests of mixed prompt length on 4 slots of a 256-row contiguous
+     cache, 1-bit (``QuantPolicy.binary()``): packed ``vpu``, packed
+     ``mxu`` and fake-quant; the greedy streams must be identical (paper
+     §2.2.2);
+   - the paged cell, 1-bit packed ``vpu``: 8 requests of a common 512-token
+     prefix plus a 64-448-token tail on 4 slots of a 2,048-row cache,
+     served contiguous-gather, paged-gather, paged-fused at fp / int8 /
+     1-bit KV and contiguous-fused (block 16, prefill chunk 256, shared
+     prefixes); the allocator must end empty, prefilled + shared tokens
+     must be the prompt tokens with some shared, K11 must launch layers x
+     (decode steps + prefill windows) times on the fused runs and never on
+     the gather runs, and layer 0's fused attention must stay within the
+     rounding bound of the gather oracle at every tier;
    - w4a4 (``QuantPolicy.quantized(4)``): packed ``vpu`` (-> vpu-k4),
      packed ``mxu`` (-> mxu-k4) and fake-quant; the ``vpu`` and ``mxu``
      streams must be identical (the same integer S, the same dequant);
@@ -95,9 +113,23 @@ KERNELS = {
                         "src/repro/kernels/kbit_gemm.py:138"),
     "kbit_mxu_gemm": ("src/repro_torch/csrc/kbit_mxu_gemm.cu",
                       "src/repro/kernels/kbit_mxu.py:205"),
+    "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
+                     "src/repro/kernels/attn_decode.py:259"),
 }
 ONE_BIT = ("pack_sign", "xnor_mismatch", "xnor_dot_mxu")
 K_BIT = ("quant_pack_planes", "kbit_plane_gemm", "kbit_mxu_gemm")
+
+FP32_FLOPS_PER_S = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
+ATTN_TOL = 2e-5  # the JAX package's fused-attention test tolerance
+ATTN_TIERS = ("fp32", "bf16", 8, 1)  # fp pools by dtype, then kv_bits
+# the paged serving cell: chat / RAG traffic behind a shared system prompt
+PAGED_CACHE_LEN = 2048
+PAGED_BLOCK = 16
+PAGED_CHUNK = 256
+PREFIX_LEN = 512
+TAIL_LENS = (64, 448)  # unique tail per request, uniform from the seed
+PAGED_REQUESTS = 8
+PAGED_NEW_TOKENS = 32
 
 
 def nvidia_smi(query: str) -> str:
@@ -226,6 +258,131 @@ def parity_kbit(dev) -> dict[str, float]:
           f"{len(cases)} shapes x {len(PLANE_PAIRS)} plane pairs: equal to "
           f"their plain versions and K5 == K6, exactly (int32)")
     return err
+
+
+def kv_storage(tier, shape, gen, dev):
+    """K or V storage for one pool of unit-scale values: fp32 or bf16
+    values, or ``kv_quantize`` codes and scales (``tier`` 8 or 1)."""
+    from repro_torch.kernels import attn_decode
+
+    x = torch.randn(shape, generator=gen, device=dev)
+    if tier == "fp32":
+        return x, None
+    if tier == "bf16":
+        return x.to(torch.bfloat16), None
+    return attn_decode.kv_quantize(tier, x)
+
+
+def attn_case(dev, gen, tier, layout, lens, c, g, dh, bps, kvh, holes):
+    """One K11 call's operands (for ``attn_call``) and each slot's key
+    positions in table order (B, L), -1 where there is no key.  Paged: a
+    shuffled pool of ``len(lens) * bps`` blocks; with ``holes`` also three
+    spare blocks holding stale positions, a -1 entry in the middle of slot
+    0's table, and no mapped block at all for the last slot.  Contiguous:
+    per-slot slabs.  Slot b holds positions ``0 .. lens[b]-1``; its queries
+    are the last C of them."""
+    b, bs = len(lens), PAGED_BLOCK
+    lens_t = torch.as_tensor(lens, device=dev)
+    span = torch.arange(bps * bs, dtype=torch.int32, device=dev)
+    dense_pos = torch.where(span < lens_t[:, None], span, -1)  # (B, L)
+    q = torch.randn((b, c, kvh, g, dh), generator=gen, device=dev)
+    q_pos = (lens_t[:, None] - c + torch.arange(c, device=dev)).to(torch.int32)
+    if layout == "contig":
+        k, ks = kv_storage(tier, (b, bps * bs, kvh, dh), gen, dev)
+        v, vs = kv_storage(tier, (b, bps * bs, kvh, dh), gen, dev)
+        return dict(q=q, q_pos=q_pos, k=k, v=v, slot_pos=dense_pos,
+                    k_scale=ks, v_scale=vs), dense_pos
+    nb = b * bps + (3 if holes else 0)
+    table = torch.randperm(nb, generator=gen, device=dev)[:b * bps]
+    table = table.view(b, bps).to(torch.int32)
+    if holes:
+        table[0, bps // 2] = -1
+        table[-1] = -1
+    pool_pos = (torch.randint(0, bps * bs, (nb, bs), generator=gen, device=dev,
+                              dtype=torch.int32) if holes else
+                torch.full((nb, bs), -1, dtype=torch.int32, device=dev))
+    mapped = table >= 0
+    pool_pos[table[mapped].long()] = dense_pos.view(b, bps, bs)[mapped]
+    k, ks = kv_storage(tier, (nb, bs, kvh, dh), gen, dev)
+    v, vs = kv_storage(tier, (nb, bs, kvh, dh), gen, dev)
+    kpos = torch.where(mapped[:, :, None], dense_pos.view(b, bps, bs), -1)
+    return dict(table=table, q=q, q_pos=q_pos, pool_k=k, pool_v=v,
+                pool_pos=pool_pos, k_scale=ks, v_scale=vs), kpos.view(b, -1)
+
+
+def attn_call(plain: bool, layout: str, args: dict, tier, **opts):
+    """K11 (``plain=False``: the wrapper, which launches the kernel) or its
+    plain version on one case from :func:`attn_case`."""
+    from repro_torch.kernels import attn_decode
+
+    kv_bits = tier if isinstance(tier, int) else None
+    if layout == "contig":
+        fn = (attn_decode.flash_decode_contig_plain if plain
+              else attn_decode.flash_decode_contig)
+        return fn(**args, kv_bits=kv_bits, **opts)
+    if plain:
+        return attn_decode.flash_decode_paged_plain(**args, kv_bits=kv_bits,
+                                                    **opts)
+    return attn_decode.flash_decode_paged(**args, block_size=PAGED_BLOCK,
+                                          kv_bits=kv_bits, **opts)
+
+
+def visible(kpos, q_pos, window):
+    """(B, C) bool: does query row (b, c) see any key (causal mask)?"""
+    kp, qp = kpos[:, None, :], q_pos[:, :, None]
+    ok = (kp >= 0) & (kp <= qp)
+    if window is not None:
+        ok &= kp > qp - window
+    return ok.any(-1)
+
+
+def parity_attn(dev) -> float:
+    """K11 against its plain version over fp32 / bf16 / int8 / 1-bit pools,
+    paged (block 16, 7 entries per slot: not a multiple of the default 4
+    per split step) and contiguous, C in {1, 4, 256}, G in {1, 4}, Dh in
+    {64, 128}, softcap and window each on and off, ragged lengths, a -1
+    entry mid-table and an unmapped slot.  Rows that see a key must agree
+    within 2e-5 (unit-scale inputs, the JAX test's tolerance; bf16 pools
+    too: both sides read the same bf16 values, exact in fp32, so only the
+    summation order differs), every output must be finite, and the unmapped
+    slot must be exact zeros.  Returns the max |err|."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    worst, n = 0.0, 0
+    for tier in ATTN_TIERS:
+        for layout in ("paged", "contig"):
+            for c in (1, 4, 256):
+                for g in (1, 4):
+                    for dh in (64, 128):
+                        ragged = int(torch.randint(1, 7 * PAGED_BLOCK, (1,),
+                                                   generator=gen, device=dev))
+                        args, kpos = attn_case(
+                            dev, gen, tier, layout, [7 * PAGED_BLOCK, ragged, 0],
+                            c, g, dh, bps=7, kvh=2, holes=True)
+                        for cap in (None, 30.0):
+                            for window in (None, 40):
+                                opts = dict(sm_scale=dh ** -0.5,
+                                            logit_softcap=cap, window=window)
+                                got = attn_call(False, layout, args, tier, **opts)
+                                want = attn_call(True, layout, args, tier, **opts)
+                                torch.cuda.synchronize()
+                                where = (f"K11 {tier} {layout} C={c} G={g} "
+                                         f"Dh={dh} cap={cap} window={window}")
+                                vis = visible(kpos, args["q_pos"], window)
+                                if not torch.isfinite(got).all():
+                                    raise AssertionError(f"{where}: non-finite")
+                                e = float((got[vis] - want[vis]).abs().max())
+                                worst, n = max(worst, e), n + 1
+                                if e > ATTN_TOL:
+                                    raise AssertionError(
+                                        f"{where}: max |err| {e} > {ATTN_TOL}")
+                                if layout == "paged" and bool(got[-1].any()):
+                                    raise AssertionError(
+                                        f"{where}: unmapped slot not zero")
+    print(f"parity: K11 at {n} cases (4 pools x 2 layouts x C 1/4/256 x G "
+          f"1/4 x Dh 64/128 x softcap x window) within {ATTN_TOL} of its "
+          f"plain version on rows that see a key, unmapped slot exact zeros;"
+          f" max |err| {worst:.3e}")
+    return worst
 
 
 # --------------------------------------------------------------------------
@@ -403,6 +560,110 @@ def decode_layer_totals(rows: list) -> dict:
     return totals
 
 
+def event_ms(fn, args: dict, reps: int = 3) -> float:
+    """Median time of one eager call between CUDA events (for the plain
+    versions, whose host-side loop cannot be captured in a graph)."""
+    fn(**args)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(**args)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def kv_row_bytes(tier, dh: int) -> int:
+    """Bytes of one cached row of one kv-head, K or V, with its scale."""
+    return {"fp32": 4 * dh, "bf16": 2 * dh,
+            8: dh + 4 * (dh // 32 if dh % 32 == 0 else 1), 1: dh // 8 + 4}[tier]
+
+
+def timing_attn(dev) -> list:
+    """K11 at the paged serving shapes — batch 4, 8 kv-heads of 64, G 4,
+    a 2,048-row cache of 128 blocks of 16 per slot, all mapped as admission
+    maps them, ragged lengths from the serving mix — at decode (C 1) and one
+    prefill window (C 256, the last chunk of each prompt), per pool tier.
+    Each row: the kernel (pool copies cycled to overflow the L2 cache, as
+    40 layers read their pools cold), the plain version, the library
+    yardstick (``scaled_dot_product_attention`` on the dense gathered fp32
+    K/V with the ``_mask`` mask and GQA; the port never calls it), and the
+    bound: the larger of the bytes (K/V codes and scales of every row the
+    mask admits, the pool_pos of mapped blocks, the table, q, q_pos, out) at
+    the HBM rate and 4*G*Dh fp32 operations per (query row, admitted key,
+    kv-head) at the fp32 peak."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import attn_decode as ak
+
+    b, kvh, g, dh, bps = DECODE_M, 8, 4, 64, PAGED_CACHE_LEN // PAGED_BLOCK
+    rng = np.random.default_rng(SEED + 5)
+    lens = [int(x) for x in rng.integers(PREFIX_LEN + TAIL_LENS[0],
+                                         PREFIX_LEN + TAIL_LENS[1] + 1, b)]
+    sm = dh ** -0.5
+    rows = []
+    for c in (1, PAGED_CHUNK):
+        for tier in ATTN_TIERS:
+            gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+            args, kpos = attn_case(dev, gen, tier, "paged", lens, c, g, dh,
+                                   bps, kvh, holes=False)
+            pool_bytes = 2 * args["pool_pos"].numel() * kvh * kv_row_bytes(tier, dh)
+            copies = [args] + [
+                {**args, **{k: args[k].clone() for k in
+                            ("pool_k", "pool_v", "k_scale", "v_scale")
+                            if args[k] is not None}}
+                for _ in range(copies_for(pool_bytes, 64) - 1)]
+            ms = graph_ms(lambda a: attn_call(False, "paged", a, tier,
+                                              sm_scale=sm),
+                          [(a,) for a in copies], max(2 * len(copies), 20))
+            plain_ms = event_ms(lambda **a: attn_call(True, "paged", a, tier,
+                                                      sm_scale=sm), args)
+            # library yardstick on the dense gathered, dequantized K/V
+            adm = (kpos[:, None, :] >= 0) & (kpos[:, None, :] <= args["q_pos"][:, :, None])
+            safe = args["table"].clamp(min=0).long()
+
+            def dense(pool, scale):
+                x = pool[safe]
+                if isinstance(tier, int):
+                    x = ak.kv_dequantize(tier, x, scale[safe], dh)
+                return x.float().reshape(b, -1, kvh, dh).transpose(1, 2).contiguous()
+
+            k_d = dense(args["pool_k"], args["k_scale"])
+            v_d = dense(args["pool_v"], args["v_scale"])
+            q_h = args["q"].permute(0, 2, 3, 1, 4).reshape(b, kvh * g, c, dh)
+            n_lib = copies_for(2 * k_d.numel() * 4, 8)
+            lib_sets = [(q_h, k_d.clone(), v_d.clone(), adm[:, None])
+                        for _ in range(n_lib)]
+            library_ms = graph_ms(
+                lambda q_, k_, v_, m_: F.scaled_dot_product_attention(
+                    q_, k_, v_, attn_mask=m_, scale=sm, enable_gqa=True),
+                lib_sets, max(2 * n_lib, 20))
+            keys_any = adm.any(1)  # (B, L): rows some query of the slot admits
+            n_blocks = int((args["table"] >= 0).sum())
+            nbytes = (int(keys_any.sum()) * kvh * 2 * kv_row_bytes(tier, dh)
+                      + n_blocks * PAGED_BLOCK * 4 + args["table"].numel() * 4
+                      + 2 * args["q"].numel() * 4 + args["q_pos"].numel() * 4)
+            ops = 4 * g * dh * kvh * int(adm.sum())
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS_PER_S
+            row = dict(c=c, tier=str(tier), lens=lens, ms=ms, plain_ms=plain_ms,
+                       library_ms=library_ms, bytes=nbytes, ops=ops,
+                       bound_ms=max(t_bytes, t_ops) * 1e3,
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       copies=len(copies))
+            rows.append(row)
+            print(f"timing K11 {tier} C={c} (B {b}, KVH {kvh}, G {g}, Dh {dh}, "
+                  f"lens {lens}) (us): kernel {ms * 1e3:.3f} plain "
+                  f"{plain_ms * 1e3:.3f} library {library_ms * 1e3:.3f} bound "
+                  f"{row['bound_ms'] * 1e3:.3f} ({row['bound_by']}: "
+                  f"{nbytes} bytes, {ops} flops)")
+            del copies, lib_sets, k_d, v_d
+    return rows
+
+
 # --------------------------------------------------------------------------
 # phase 4: serving
 # --------------------------------------------------------------------------
@@ -523,6 +784,9 @@ def serving(dev) -> tuple[dict, dict]:
             and not any(lf.values())):
         raise AssertionError(f"1-bit path did not run through the kernels: "
                              f"{launches}")
+    t0 = time.perf_counter()
+    k11_launches, paged = serving_paged(spec, cfg, packed, dev)
+    print(f"serving: paged cell {time.perf_counter() - t0:.3f}s")
     del packed
 
     runs4, launches4 = serve_mix(
@@ -558,12 +822,14 @@ def serving(dev) -> tuple[dict, dict]:
                          launches4["packed-vpu"]["quant_pack_planes"],
                      "kbit_plane_gemm":
                          launches4["packed-vpu"]["kbit_plane_gemm"],
-                     "kbit_mxu_gemm": launches4["packed-mxu"]["kbit_mxu_gemm"]}
+                     "kbit_mxu_gemm": launches4["packed-mxu"]["kbit_mxu_gemm"],
+                     "flash_decode": k11_launches}
     summary = {tag + k: {kk: vv for kk, vv in v.items() if kk != "results"}
                for tag, rs in (("", runs), ("w4a4 ", runs4))
                for k, v in rs.items()}
     summary["w4a4 agreement with fake-quant"] = agreement
     summary["layer0 packed vs fake-quant"] = layer0
+    summary["paged cell"] = paged
     return main_launches, summary
 
 
@@ -661,18 +927,242 @@ def layer0_gemms(dev, cfg, params, prompts) -> dict:
     return out
 
 
+def paged_prompts(vocab: int) -> list:
+    """The paged cell's requests: a common 512-token prefix (the shared
+    system prompt) plus a unique tail of 64-448 tokens each."""
+    rng = np.random.default_rng(SEED + 3)
+    prefix = rng.integers(0, vocab, (PREFIX_LEN,))
+    return [np.concatenate([prefix, rng.integers(
+        0, vocab, (int(rng.integers(TAIL_LENS[0], TAIL_LENS[1] + 1)),))]
+        ).astype(np.int32) for _ in range(PAGED_REQUESTS)]
+
+
+PAGED_RUNS = (  # label, EngineConfig fields beyond the base
+    ("contig-gather", {}),
+    ("paged-gather", dict(kv_block_size=PAGED_BLOCK, prefill_chunk=PAGED_CHUNK,
+                          shared_prefix=True)),
+    ("paged-fused", dict(kv_block_size=PAGED_BLOCK, prefill_chunk=PAGED_CHUNK,
+                         shared_prefix=True, fused_attn=True)),
+    ("paged-fused-kv8", dict(kv_block_size=PAGED_BLOCK,
+                             prefill_chunk=PAGED_CHUNK, shared_prefix=True,
+                             fused_attn=True, kv_bits=8)),
+    ("paged-fused-kv1", dict(kv_block_size=PAGED_BLOCK,
+                             prefill_chunk=PAGED_CHUNK, shared_prefix=True,
+                             fused_attn=True, kv_bits=1)),
+    ("contig-fused", dict(fused_attn=True)),
+)
+
+
+def serving_paged(spec, cfg, packed, dev) -> tuple[int, dict]:
+    """The paged cell: 1-bit packed ``vpu`` granite-3-2b, all layers, 8
+    requests (``paged_prompts``, 32 new tokens each) on 4 slots of a
+    2,048-row cache, served six ways (``PAGED_RUNS``), each with the kernel
+    counts set to 0 just before it and read just after.  Gates: every
+    stream complete and in the vocabulary; on paged runs the allocator ends
+    with no live block and ``prefill_tokens + shared_tokens`` is the sum of
+    the prompt lengths with ``shared_tokens > 0``; K11 launches ==
+    layers x (decode steps + prefill windows) on fused runs (contiguous
+    prefill is not a window) and 0 on gather runs; K1/K2 run every time.
+    Then layer 0's fused attention is held against the gather oracle at
+    every pool tier (:func:`layer0_attention`).  Stream agreements between
+    runs are reported, not gated.  Returns (K11 launches on the
+    ``paged-fused`` run, summary)."""
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.dispatch import GemmConfig
+    from repro_torch.launch.serve import stream_agreement
+    from repro_torch.nn.common import QCtx
+    from repro_torch.serve.engine import (Engine, EngineConfig, Request,
+                                          Scheduler)
+
+    prompts = paged_prompts(cfg.vocab_size)
+    total_prompt = sum(len(p) for p in prompts)
+    ctx = QCtx(policy=QuantPolicy.binary(), compute_dtype=torch.float32,
+               gemm_config=GemmConfig(backend="vpu"))
+    runs, engines = {}, {}
+    for label, extra in PAGED_RUNS:
+        eng = Engine(spec, cfg, ctx, packed, EngineConfig(
+            batch=DECODE_M, cache_len=PAGED_CACHE_LEN,
+            max_new_tokens=PAGED_NEW_TOKENS, **extra))
+        sched = Scheduler(eng)
+        for pr in prompts:
+            sched.submit(Request(prompt=pr))
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        results = sched.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(_cuda.LAUNCHES)
+        st = sched.stats
+        n_tok = sum(len(v) for v in results.values())
+        windows = st.prefills if eng.paged else 0
+        runs[label] = dict(
+            results=results, seconds=dt, tokens=n_tok, tok_s=n_tok / dt,
+            decode_ms_step=statistics.median(st.tpots()) * 1e3,
+            steps=st.steps, prefills=st.prefills, prefill_windows=windows,
+            prefill_tokens=st.prefill_tokens, shared_tokens=st.shared_tokens,
+            launches={k: v for k, v in launches.items() if v})
+        engines[label] = eng
+        print(f"serving paged cell {label}: {n_tok} tokens in {dt:.4f}s = "
+              f"{n_tok / dt:.3f} tok/s; decode {runs[label]['decode_ms_step']:.4f}"
+              f" ms/step (median inter-token gap); {st.steps} decode steps, "
+              f"{st.prefills} prefills ({windows} windows), prefill tokens "
+              f"{st.prefill_tokens}, shared {st.shared_tokens}; launches "
+              f"{runs[label]['launches']}")
+        where = f"paged cell {label}"
+        if sorted(results) != list(range(len(prompts))) or any(
+                len(v) != PAGED_NEW_TOKENS or not ((v >= 0) & (v < cfg.vocab_size)).all()
+                for v in results.values()):
+            raise AssertionError(f"{where}: bad streams {results}")
+        if eng.paged:
+            if sched.alloc.live_blocks != 0:
+                raise AssertionError(f"{where}: {sched.alloc.live_blocks} "
+                                     "blocks still live after the run")
+            if (st.prefill_tokens + st.shared_tokens != total_prompt
+                    or st.shared_tokens <= 0):
+                raise AssertionError(
+                    f"{where}: prefill {st.prefill_tokens} + shared "
+                    f"{st.shared_tokens} != {total_prompt} prompt tokens")
+        want = cfg.n_layers * (st.steps + windows) if extra.get("fused_attn") else 0
+        if (launches["flash_decode"] != want or launches["pack_sign"] == 0
+                or launches["xnor_mismatch"] == 0):
+            raise AssertionError(f"{where}: launches {launches}, K11 expected "
+                                 f"{want}")
+
+    def agree(a, b):
+        same, total, first = stream_agreement(runs[a]["results"],
+                                              runs[b]["results"])
+        return dict(tokens_agree=same, tokens=total, first_difference=first)
+
+    agreement = {
+        "paged-gather vs contig-gather": agree("paged-gather", "contig-gather"),
+        "paged-fused vs paged-gather": agree("paged-fused", "paged-gather"),
+        "contig-fused vs contig-gather": agree("contig-fused", "contig-gather"),
+        "paged-fused-kv8 vs paged-fused": agree("paged-fused-kv8", "paged-fused"),
+        "paged-fused-kv1 vs paged-fused": agree("paged-fused-kv1", "paged-fused"),
+    }
+    print(f"serving paged cell: stream agreement (reported, not gated): "
+          f"{agreement}")
+    oracle = {label: layer0_attention(engines[label], prompts)
+              for label in ("paged-fused", "paged-fused-kv8", "paged-fused-kv1",
+                            "contig-fused")}
+    profiles = {label: profile_decode(engines[label], f"paged cell {label}")
+                for label in ("paged-fused", "contig-gather")}
+    summary = {label: {k: v for k, v in r.items() if k != "results"}
+               for label, r in runs.items()}
+    summary.update(agreement=agreement, layer0_fused_vs_oracle=oracle,
+                   decode_profiles=profiles, prompt_lens=[len(p) for p in prompts])
+    return runs["paged-fused"]["launches"]["flash_decode"], summary
+
+
+def layer0_attention(eng, prompts) -> dict:
+    """Serve the first four requests (4 new tokens each) with every call of
+    layer 0's fused attention also computed by the gather + ``_sdpa`` oracle
+    over the same storage.  The gate is the first-order rounding bound of
+    softmax attention: the two paths' scores differ by at most ``ds = 2 *
+    Dh * 2^-24 * sm_scale * max_j sum_d |q_d k_jd|`` (fp32 dot products in
+    two orders), which moves an output channel by at most ``ds * sum_j p_j
+    |v_j - o| <= ds * 4 * (1 - p_max) * max|v|``; plus ``2e-5 * max(1,
+    max|v|)`` for the value sums.  A row whose softmax is one key (p_max =
+    1, common at a 1-bit model's large scores) must then agree to the
+    second term alone; near-tied rows get the slack their conditioning
+    needs.  Rows that see no key are not compared."""
+    import dataclasses
+
+    from repro_torch.serve.engine import Request, Scheduler
+
+    if eng.cfg.attn.logit_softcap is not None:
+        raise AssertionError("layer0_attention's bound assumes no softcap")
+    n_layers, base = eng.cfg.n_layers, eng.kv
+    state = dict(calls=0, checked=0, rows=0, max_err=0.0, max_ratio=0.0)
+
+    class Layer0Check(type(base)):
+        def attend(self, cache, q, q_pos, cfg):
+            out = super().attend(cache, q, q_pos, cfg)
+            if state["calls"] % n_layers == 0:
+                check_attention(self, cache, q, q_pos, cfg, out, state)
+            state["calls"] += 1
+            return out
+
+    eng.kv = Layer0Check(**dataclasses.asdict(base))
+    try:
+        sched = Scheduler(eng)
+        for pr in prompts[:DECODE_M]:
+            sched.submit(Request(prompt=pr, max_new_tokens=4))
+        sched.run()
+    finally:
+        eng.kv = base
+    print(f"layer 0 fused vs gather oracle ({type(base).__name__}, kv_bits "
+          f"{base.kv_bits}): {state['checked']} calls, {state['rows']} rows, "
+          f"max |err| {state['max_err']:.3e}, max |err| / bound "
+          f"{state['max_ratio']:.4f}")
+    return {k: v for k, v in state.items() if k != "calls"}
+
+
+def check_attention(kv, cache, q, q_pos, cfg, out, state) -> None:
+    """One fused call against the gather oracle (see layer0_attention)."""
+    from repro_torch.nn import attention
+
+    k, v, kpos = kv.gather(cache)
+    mask = attention._mask(cfg, q_pos, kpos)  # (B, C, L)
+    want = attention._sdpa(cfg, q.float(), k, v, mask)  # (B, C, KVH, G, Dh)
+    qf = q.float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * cfg.scale
+    s = torch.where(mask[:, None, None], s, attention.NEG_INF)
+    p_max = torch.softmax(s, dim=-1).amax(-1)  # (B, KVH, G, C)
+    del s
+    sabs = torch.einsum("bqhgd,bkhd->bhgqk", qf.abs(), k.float().abs())
+    sabs = torch.where(mask[:, None, None], sabs, 0.0).amax(-1) * cfg.scale
+    vmax = torch.where((kpos >= 0)[:, :, None, None], v.abs(), 0.0).amax(
+        dim=(1, 2, 3))  # (B,)
+    ds = 2 * cfg.d_head * 2.0 ** -24 * sabs
+    vm = vmax[:, None, None, None]
+    bound = ds * 4 * (1 - p_max) * vm + ATTN_TOL * vm.clamp(min=1.0)
+    bound = bound.permute(0, 3, 1, 2)[..., None]  # (B, C, KVH, G, 1)
+    vis = mask.any(-1)  # (B, C)
+    err = (out - want).abs()
+    ratio = float((err / bound)[vis].max()) if vis.any() else 0.0
+    state["checked"] += 1
+    state["rows"] += int(vis.sum())
+    state["max_err"] = max(state["max_err"], float(err[vis].max()) if vis.any() else 0.0)
+    state["max_ratio"] = max(state["max_ratio"], ratio)
+    if ratio > 1.0 or not torch.isfinite(out[vis]).all():
+        raise AssertionError(f"layer 0 fused attention off the gather oracle: "
+                             f"{state}")
+
+
+def full_cache(eng):
+    """A serving cache whose every slot holds ``cache_len`` written
+    positions (zero K/V) — each slot mapped onto its own blocks when paged
+    — so that a decode step attends every row of the cache."""
+    cache = eng.init_cache()
+    b, length = eng.ecfg.batch, eng.ecfg.cache_len
+    for lc in cache["layers"]:
+        if eng.paged:
+            nb, bs = lc["pool_pos"].shape
+            lc["table"].copy_(torch.arange(nb, device=eng.device).view(b, -1))
+            lc["pool_pos"].copy_(
+                (torch.arange(nb * bs, device=eng.device) % length).view(nb, bs))
+        else:
+            lc["slot_pos"].copy_(torch.arange(length, device=eng.device))
+    return cache
+
+
 def profile_decode(eng, label: str, steps: int = 3) -> dict:
     """Where one decode step's time goes: wall time of ``steps`` plain
-    decode steps (batch 4, all 256 cache rows attended), and the device time
-    of the same steps under ``torch.profiler`` (kernels only, by name).  The
-    device busy share is device time over unprofiled wall time."""
+    decode steps (the batch at the last position of a full cache, so every
+    cache row is attended), and the device time of the same steps under
+    ``torch.profiler`` (kernels only, by name).  The device busy share is
+    device time over unprofiled wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     b = eng.ecfg.batch
     tok = torch.zeros((b, 1), dtype=torch.long, device=eng.device)
-    pos = torch.arange(b, dtype=torch.int32, device=eng.device)
-    cache = eng.init_cache()
+    pos = torch.full((b,), eng.ecfg.cache_len - 1, dtype=torch.int32,
+                     device=eng.device)
+    cache = full_cache(eng)
     with torch.inference_mode():
         for _ in range(2):
             eng._decode(cache, tok, pos)
@@ -739,9 +1229,14 @@ def main() -> int:
     t0 = time.perf_counter()
     err = parity(dev)
     err.update(parity_kbit(dev))
+    err["flash_decode"] = parity_attn(dev)
     print(f"parity phase {time.perf_counter() - t0:.3f}s")
     t0 = time.perf_counter()
     totals, rows = timing(dev, popc_per_s)
+    attn_rows = timing_attn(dev)
+    decode = next(r for r in attn_rows if r["c"] == 1 and r["tier"] == "fp32")
+    totals["flash_decode"] = {k: decode[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     print(f"timing phase {time.perf_counter() - t0:.3f}s")
     t0 = time.perf_counter()
     launches, serve_summary = serving(dev)
@@ -760,7 +1255,8 @@ def main() -> int:
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps({
         "device": nvidia_smi("name,power.limit"), "timing_rows": rows,
-        "kernel_totals_decode_layer (K4-K6 at w4a4)": totals,
+        "attention_timing_rows": attn_rows,
+        "kernel_totals_decode_layer (K4-K6 at w4a4, K11 fp32 pool)": totals,
         "serving": serve_summary,
         "launches": launches}, indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -30,20 +30,26 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("pack_sign.cu", "xnor_mismatch.cu", "xnor_dot_mxu.cu",
-           "quant_pack_planes.cu", "kbit_plane_gemm.cu", "kbit_mxu_gemm.cu")
+           "quant_pack_planes.cu", "kbit_plane_gemm.cu", "kbit_mxu_gemm.cu",
+           "flash_decode.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # name -> argument types before the stream; every launcher is
-# (ptr..., int64 dims..., int plane counts..., stream) -> int
-_PTRS, _DIMS = ctypes.c_void_p, ctypes.c_longlong
+# (ptr..., int64 dims..., int / float options..., stream) -> int
+_PTRS, _DIMS, _INT, _FLOAT = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                              ctypes.c_float)
 _PROTOTYPES = {
     "repro_pack_sign": 2 * [_PTRS] + 3 * [_DIMS],
     "repro_xnor_mismatch": 3 * [_PTRS] + 3 * [_DIMS],
     "repro_xnor_dot_mxu": 3 * [_PTRS] + 3 * [_DIMS],
-    "repro_quant_pack_planes": 3 * [_PTRS] + 3 * [_DIMS] + [ctypes.c_int],
-    "repro_kbit_plane_gemm": 3 * [_PTRS] + 3 * [_DIMS] + 2 * [ctypes.c_int],
-    "repro_kbit_mxu_gemm": 3 * [_PTRS] + 3 * [_DIMS] + 2 * [ctypes.c_int],
+    "repro_quant_pack_planes": 3 * [_PTRS] + 3 * [_DIMS] + [_INT],
+    "repro_kbit_plane_gemm": 3 * [_PTRS] + 3 * [_DIMS] + 2 * [_INT],
+    "repro_kbit_mxu_gemm": 3 * [_PTRS] + 3 * [_DIMS] + 2 * [_INT],
+    # (table, q, q_pos, pool_k, pool_v, k_scale, v_scale, pool_pos, out,
+    #  b, c, kvh, g, dh, nb, bs, bps, kind, spb, sm_scale, cap, causal, window)
+    "repro_flash_decode": 9 * [_PTRS] + 8 * [_DIMS] + 2 * [_INT]
+                          + 2 * [_FLOAT] + 2 * [_INT],
 }
 
 LAUNCHES: dict[str, int] = {name[len("repro_"):]: 0 for name in _PROTOTYPES}

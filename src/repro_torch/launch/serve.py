@@ -13,6 +13,18 @@ model: at 1 bit it asserts identical greedy tokens (paper §2.2.2); at k
 bits, where packed and fake-quant agree per GEMM to fp32 rounding only, it
 reports how many tokens agree and where the streams first part.
 
+``--kv-block-size N`` swaps the per-slot contiguous KV slabs for the
+block-table paged pool (greedy tokens stay bit-identical); add
+``--prefill-chunk`` to interleave long-prompt prefill with decode steps and
+``--shared-prefix`` to refcount-share already-prefilled prompt-prefix blocks
+across requests (every prompt then opens with a common ``--prompt-len``
+token "system prompt", and the stats line reports the prefill tokens saved).
+``--fused-attn`` routes decode / window attention through the hand-written
+flash-decode kernel (``csrc/flash_decode.cu``), which reads the KV storage in
+place through the block tables instead of gathering it every step, and
+``--kv-bits {8,1}`` stores the KV cache itself quantized (int8 absmax /
+1-bit sign + alpha).
+
 Example:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
       --backend vpu --check-fakequant
@@ -20,6 +32,9 @@ Example:
       --smoke --device cpu --quant w4a4 --check-fakequant
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
       --smoke --device cpu --prompts 2 --new-tokens 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
+      --quant binary --backend vpu --kv-block-size 16 --prefill-chunk 256 \\
+      --shared-prefix --fused-attn --kv-bits 8
 """
 
 from __future__ import annotations
@@ -70,8 +85,9 @@ def stream_agreement(got: dict, want: dict) -> tuple[int, int, int | None]:
     return same, total, first
 
 
-def serve(eng: Engine, prompts: list[np.ndarray]) -> tuple[dict, float]:
-    """Submit ``prompts`` to a fresh Scheduler; returns (results, seconds)."""
+def serve(eng: Engine, prompts: list[np.ndarray]):
+    """Submit ``prompts`` to a fresh Scheduler; returns (results, seconds,
+    scheduler stats)."""
     sched = Scheduler(eng)
     for p in prompts:
         sched.submit(Request(prompt=p))
@@ -81,7 +97,7 @@ def serve(eng: Engine, prompts: list[np.ndarray]) -> tuple[dict, float]:
     results = sched.run()
     if eng.device.type == "cuda":
         torch.cuda.synchronize(eng.device)
-    return results, time.perf_counter() - t0
+    return results, time.perf_counter() - t0, sched.stats
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -103,6 +119,29 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds the params (torch.Generator) and prompts")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--kv-block-size", type=int, default=None,
+                    help="switch the KV cache to the block-table paged "
+                         "pool with this block size (must divide "
+                         "--cache-len); default contiguous per-slot slabs")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="paged mode: split prompt prefill into windows "
+                         "of this many tokens interleaved with decode "
+                         "steps (bounds batchmates' inter-token latency)")
+    ap.add_argument("--shared-prefix", action="store_true",
+                    help="paged mode: hash full prompt blocks at "
+                         "admission and reuse already-prefilled blocks "
+                         "across identical-prefix requests (every prompt "
+                         "gets a common prefix so the savings show up in "
+                         "the stats line)")
+    ap.add_argument("--fused-attn", action="store_true",
+                    help="route decode/window attention through the fused "
+                         "flash-decode kernel (no dense KV gather); off = "
+                         "the gather + masked-sdpa oracle path")
+    ap.add_argument("--kv-bits", type=int, default=None, choices=[8, 1],
+                    help="KV-cache storage tier: 8 = int8 codes + per-"
+                         "(head, dh-group) absmax scales, 1 = sign bytes + "
+                         "per-head alpha (the XNOR tier); default fp "
+                         "compute dtype")
     ap.add_argument("--check-fakequant", action="store_true",
                     help="also serve the fake-quant float model: assert "
                          "identical greedy tokens at 1 bit (paper §2.2.2), "
@@ -129,17 +168,36 @@ def main(argv: list[str] | None = None) -> dict:
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(0, cfg.vocab_size, (args.prompt_len,)).astype(np.int32)
                for _ in range(args.prompts)]
+    if args.shared_prefix:
+        # every request opens with the same "system prompt", so later
+        # admissions reuse its already-prefilled blocks
+        shared = rng.integers(0, cfg.vocab_size,
+                              (args.prompt_len,)).astype(np.int32)
+        prompts = [np.concatenate([shared, p]) for p in prompts]
     ecfg = EngineConfig(batch=args.prompts, cache_len=args.cache_len,
-                        max_new_tokens=args.new_tokens, seed=args.seed)
-    results, dt = serve(Engine(spec, cfg, ctx, packed, ecfg), prompts)
+                        max_new_tokens=args.new_tokens, seed=args.seed,
+                        kv_block_size=args.kv_block_size,
+                        prefill_chunk=args.prefill_chunk,
+                        shared_prefix=args.shared_prefix,
+                        fused_attn=args.fused_attn, kv_bits=args.kv_bits)
+    eng = Engine(spec, cfg, ctx, packed, ecfg)
+    tier = {None: "fp", 8: "int8", 1: "1-bit"}[args.kv_bits]
+    print(f"KV cache: {'paged' if eng.paged else 'contiguous'}, {tier} "
+          f"storage; decode attention: "
+          f"{'fused flash-decode kernel' if args.fused_attn else 'gather'}")
+    results, dt, stats = serve(eng, prompts)
     n_tok = sum(len(v) for v in results.values())
     print(f"packed ({args.backend}): {n_tok} tokens in {dt:.3f}s "
-          f"({n_tok / dt:.1f} tok/s)")
+          f"({n_tok / dt:.1f} tok/s), {stats.steps} decode steps, "
+          f"{stats.prefills} prefills")
+    if eng.paged:
+        print(f"paged KV: {stats.prefill_tokens} prompt tokens prefilled, "
+              f"{stats.shared_tokens} reused from shared prefix blocks")
     for rid in sorted(results)[:4]:
         print(f"  rid={rid}: {results[rid][:12]}")
 
     if args.check_fakequant:
-        ref, dt_f = serve(Engine(spec, cfg, ctx, params, ecfg), prompts)
+        ref, dt_f, _ = serve(Engine(spec, cfg, ctx, params, ecfg), prompts)
         agree, total, first = stream_agreement(results, ref)
         print(f"fake-quant: {total} tokens in {dt_f:.3f}s; packed == "
               f"fake-quant: {first is None} ({agree} of {total} tokens "

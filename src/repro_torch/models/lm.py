@@ -121,55 +121,102 @@ def forward(params: Params, cfg: LMConfig, ctx: QCtx,
 
 
 # --------------------------------------------------------------------------
-# serving: prefill + decode (contiguous KV cache)
+# serving: prefill + decode + windows
 # --------------------------------------------------------------------------
 
 
 def init_cache(cfg: LMConfig, b: int, cache_len: int, dtype=torch.bfloat16,
-               device="cuda") -> Params:
-    return {"layers": [attn_lib.CONTIGUOUS.init(b, cfg.attn, cache_len, dtype,
-                                                device)
+               device="cuda", kv: attn_lib.KVCache | None = None) -> Params:
+    """``kv`` selects the attention cache layout (default contiguous)."""
+    kv = attn_lib.CONTIGUOUS if kv is None else kv
+    return {"layers": [kv.init(b, cfg.attn, cache_len, dtype, device)
                        for _ in range(cfg.n_layers)]}
 
 
-def cache_insert(cache: Params, sub: Params, slots: torch.Tensor) -> Params:
-    """Write a (G,)-batch prefill cache into G slots of the serving cache
-    (in place; ``slots``: (G,) distinct slot indices)."""
+def cache_insert(cache: Params, sub: Params, slots: torch.Tensor,
+                 kv: attn_lib.KVCache | None = None) -> Params:
+    """Write a (G,)-batch contiguous fp prefill cache into G slots of the
+    serving cache (in place; ``slots``: (G,) distinct slot indices).
+    Contiguous layout: a full-slot overwrite whose ``slot_pos = -1`` rows
+    past the prompt retire the previous occupant's stale rows.  Paged
+    layout: the sub-cache's valid rows scatter into the slots' mapped
+    blocks, which the allocator pos-reset at admission."""
+    kv = attn_lib.CONTIGUOUS if kv is None else kv
     for lc, sub_lc in zip(cache["layers"], sub["layers"]):
-        attn_lib.CONTIGUOUS.insert(lc, sub_lc, slots)
+        kv.insert(lc, sub_lc, slots)
     return cache
 
 
-def cache_reset(cfg: LMConfig, cache: Params, slot: int) -> Params:
-    """Retire one serving slot: its attention rows become invisible.  This
-    is hygiene; what protects the next occupant is :func:`cache_insert`
-    overwriting the ENTIRE slot at admission."""
+def cache_reset(cfg: LMConfig, cache: Params, slot: int,
+                kv: attn_lib.KVCache | None = None) -> Params:
+    """Retire one serving slot: its attention rows become invisible
+    (``slot_pos = -1`` / table row unmapped).  On the contiguous layout this
+    is hygiene — what protects the next occupant is :func:`cache_insert`
+    overwriting the ENTIRE slot at admission; on the paged layout junk
+    writes would land in blocks that may belong to another slot, so the
+    scheduler also write-masks retired rows (``decode_step(...,
+    write_mask=active)``)."""
+    kv = attn_lib.CONTIGUOUS if kv is None else kv
     for lc in cache["layers"]:
-        attn_lib.CONTIGUOUS.reset(lc, slot)
+        kv.reset(lc, slot)
     return cache
 
 
 def decode_step(params: Params, cfg: LMConfig, ctx: QCtx, cache: Params,
-                tokens: torch.Tensor, pos: torch.Tensor):
+                tokens: torch.Tensor, pos: torch.Tensor,
+                kv: attn_lib.KVCache | None = None,
+                write_mask: torch.Tensor | None = None):
     """One token for every sequence in the batch.  tokens: (B, 1); pos: (B,)
-    absolute position of this token.  Returns (logits (B,1,V), cache); the
-    cache is updated in place."""
+    absolute position of this token; ``kv`` the cache layout;
+    ``write_mask`` (B,) bool drops inactive rows' cache writes.  Returns
+    (logits (B,1,V), cache); the cache is updated in place."""
     x = _embed(params, cfg, ctx, tokens)
     for i, blk in enumerate(params["layers"]):
         path = f"layers/{i}"
         h = norm_apply(cfg.norm, blk["pre_norm"], x)
         h, _ = attn_lib.attn_decode(blk["attn"], h, pos, cache["layers"][i],
-                                    cfg.attn, ctx, f"{path}/attn")
+                                    cfg.attn, ctx, f"{path}/attn", kv=kv,
+                                    write_mask=write_mask)
         x = x + h
         h = norm_apply(cfg.norm, blk["pre_ffn_norm"], x)
         x = x + mlp_lib.mlp_apply(blk["mlp"], h, cfg.mlp, ctx, f"{path}/mlp")
     return _logits(params, cfg, ctx, x), cache
 
 
+def decode_window(params: Params, cfg: LMConfig, ctx: QCtx, cache: Params,
+                  tokens: torch.Tensor, pos_start: torch.Tensor,
+                  kv: attn_lib.KVCache,
+                  write_mask: torch.Tensor | None = None):
+    """A C-token window for every batch row against the cache: the serving
+    primitive behind chunked prefill (decode is its C == 1 case).  Row b's
+    tokens (B, C) sit at positions ``pos_start[b] + [0..C)``; their k/v are
+    stored through ``kv.fill_window`` and attention runs over the whole
+    cache, so a chunk attends to everything already cached for its slot
+    (earlier chunks, shared-prefix blocks) plus itself.  Rows with
+    ``write_mask=False`` compute junk and write nothing.  Returns the
+    LAST-position logits (B, 1, V) — the only ones admission samples from —
+    and the cache, updated in place.  (All positions' logits are the
+    speculative verify's, ROADMAP A11.)"""
+    c = tokens.shape[1]
+    x = _embed(params, cfg, ctx, tokens)
+    positions = (pos_start.to(torch.int32)[:, None]
+                 + torch.arange(c, dtype=torch.int32, device=tokens.device))
+    for i, blk in enumerate(params["layers"]):
+        path = f"layers/{i}"
+        h = norm_apply(cfg.norm, blk["pre_norm"], x)
+        h, _ = attn_lib.attn_window(blk["attn"], h, positions,
+                                    cache["layers"][i], cfg.attn, ctx,
+                                    f"{path}/attn", kv, write_mask=write_mask)
+        x = x + h
+        h = norm_apply(cfg.norm, blk["pre_ffn_norm"], x)
+        x = x + mlp_lib.mlp_apply(blk["mlp"], h, cfg.mlp, ctx, f"{path}/mlp")
+    return _logits(params, cfg, ctx, x[:, -1:, :]), cache
+
+
 def prefill(params: Params, cfg: LMConfig, ctx: QCtx, tokens: torch.Tensor,
             cache_len: int):
-    """Process the prompt (B, S), build a fresh (B,)-batch cache, return
-    (last-position logits (B,1,V), cache)."""
+    """Process the prompt (B, S), build a fresh (B,)-batch contiguous fp
+    cache, return (last-position logits (B,1,V), cache)."""
     x = _embed(params, cfg, ctx, tokens)
     b, s, _ = x.shape
     positions = _positions(b, s, tokens.device)

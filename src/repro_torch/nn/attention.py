@@ -1,15 +1,18 @@
-"""Attention for pure attention + MLP stacks (PyTorch port of the gather
-path of ``repro.nn.attention``): MHA/GQA with a grouped einsum (KV is never
+"""Attention for pure attention + MLP stacks (PyTorch port of
+``repro.nn.attention``): MHA/GQA with a grouped einsum (KV is never
 materialised per query head), causal / sliding-window masks from absolute
-positions, logit softcap, QKV bias, RoPE, and the contiguous KV cache with
-per-batch positions.
+positions, logit softcap, QKV bias, RoPE, and the KV cache in two layouts —
+contiguous per-slot slabs and the block-table paged pool — each optionally
+storing K/V quantized (``kv_bits``).  Decode and window attention read the
+cache through the gather + ``_sdpa`` oracle, or through the fused
+flash-decode kernel (``fused_attn``, ``kernels/attn_decode.py``).
 
 All projections run through ``QCtx.dense`` => they obey the BMXNet
 quantization policy like every other GEMM.
 
-Not in this slice: the fused flash-decode kernel (``fused_attn=True``),
-quantized KV storage (``kv_bits``) and the paged cache — slice 3 — and
-``_sdpa_chunked`` for prefill longer than ``full_attn_max_seq``.
+Not in the port yet: ``_sdpa_chunked`` for prefill longer than
+``full_attn_max_seq``, and the speculative-decoding cache operations
+(``truncate``, the contiguous ``fill_window``; ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -20,6 +23,9 @@ from typing import Any
 import torch
 
 from repro_torch.core.qlayers import dense_init
+from repro_torch.kernels import attn_decode as attn_kernels
+from repro_torch.kernels.attn_decode import (kv_code_shapes, kv_dequantize,
+                                             kv_quantize)
 from repro_torch.nn.common import QCtx, rope, softcap
 
 Params = dict[str, Any]
@@ -41,17 +47,17 @@ class AttnConfig:
     causal: bool = True
     query_scale: float | None = None  # default d_head ** -0.5
     full_attn_max_seq: int = 4096
-    fused_attn: bool = False  # the flash-decode kernel: slice 3
-    kv_bits: int | None = None  # quantized KV storage: slice 3
-
-    def __post_init__(self):
-        if self.fused_attn:
-            raise NotImplementedError(
-                "fused_attn (the flash-decode kernel) comes with slice 3 of "
-                "the port; the gather + _sdpa path serves this slice")
-        if self.kv_bits is not None:
-            raise NotImplementedError(
-                "quantized KV storage (kv_bits) comes with slice 3 of the port")
+    # decode-attention execution (serving): route attn_decode / attn_window
+    # through the flash-decode kernel (kernels/attn_decode.py) instead of
+    # gather + _sdpa.  False keeps the gather path, the oracle the fused
+    # kernel is held against.
+    fused_attn: bool = False
+    # KV-cache storage tier: None = fp compute dtype; 8 = int8 codes +
+    # per-(head, dh-group) absmax scales; 1 = packed sign bytes + per-head
+    # alpha (the XNOR tier).  The cache layout carrying the same value
+    # quantises on write; gather() dequantises, so the oracle path reads the
+    # identical quantized storage.
+    kv_bits: int | None = None
 
     @property
     def groups(self) -> int:
@@ -132,46 +138,102 @@ def _full_sdpa(cfg: AttnConfig, qg, k, v, q_pos, k_pos):
     return _sdpa(cfg, qg, k, v, _mask(cfg, q_pos, k_pos))
 
 
+
+
 # --------------------------------------------------------------------------
-# KV cache (decode) — the contiguous layout
+# KV cache (decode) — one KVCache API, two layouts
 # --------------------------------------------------------------------------
+
+_A11 = ("belongs to speculative decoding (ROADMAP A11), which the port does "
+        "not have yet")
 
 
 @dataclasses.dataclass(frozen=True)
-class ContiguousKVCache:
+class KVCache:
+    """Layout handle for attention KV caches.
+
+    An instance is a static descriptor; the cache state is a plain dict of
+    tensors.  Unlike the JAX package the methods write that dict IN PLACE
+    (and return it): index writes and scatters instead of the one-hot
+    selects the JAX package uses to stay SPMD-safe under GSPMD.  Both
+    layouts implement the same surface, so model code never branches on
+    the layout:
+
+    * ``init(b, cfg, cache_len, dtype, device)`` -> empty cache
+    * ``insert(cache, sub, slots)`` -> write a (G,)-batch contiguous fp
+      prefill sub-cache into G batch slots (admission)
+    * ``reset(cache, slot)`` -> retire one slot (rows become invisible to
+      :func:`_mask`)
+    * ``fill(cache, k, v, positions, write_mask=None)`` -> store projected
+      k/v at absolute positions
+    * ``fill_window(...)`` -> the same at arbitrary per-row window starts
+      (chunked prefill)
+    * ``gather(cache)`` -> dense ``(k, v, pos)`` views ``(B, L, KVH, Dh) x2
+      + (B, L)`` that ``_sdpa`` consumes (dequantized)
+    * ``attend(cache, q, q_pos, cfg)`` -> the fused flash-decode kernel on
+      the layout's own storage; value-equivalent to ``_sdpa`` over
+      ``gather`` under :func:`_mask`
+
+    Quantized tiers (``kv_bits``) store codes in the K/V leaves and scales
+    in leaves beside them, written by the same index writes, so a block and
+    its scales never go out of sync; visibility (``reset``) only touches
+    the position plane."""
+
+    def fill_window(self, cache: Params, k, v, positions,
+                    write_mask: torch.Tensor | None = None) -> Params:
+        """Window write at arbitrary per-row start positions.  The paged
+        scatter handles that natively; the contiguous layout's would be the
+        speculative verify's one-hot write."""
+        return self.fill(cache, k, v, positions, write_mask)
+
+    def truncate(self, cache: Params, lengths: torch.Tensor) -> Params:
+        raise NotImplementedError(f"KVCache.truncate {_A11}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ContiguousKVCache(KVCache):
     """Per-slot contiguous storage: ``k``/``v`` (B, cache_len, KVH, Dh) +
-    ``slot_pos`` (B, cache_len) int32 absolute positions (-1 = empty).
-    The cache state is a plain dict of tensors; unlike the JAX package the
-    methods write it IN PLACE (and return it): the decode write is an index
-    write, not the one-hot select the JAX package uses to stay SPMD-safe
-    under GSPMD.  Local (sliding-window) layers use cache_len == window as a
-    ring."""
+    ``slot_pos`` (B, cache_len) int32 absolute positions (-1 = empty), plus
+    ``k_scale``/``v_scale`` when ``kv_bits`` stores codes.  Local
+    (sliding-window) layers use cache_len == window as a ring."""
 
     kv_bits: int | None = None
 
-    def __post_init__(self):
-        if self.kv_bits is not None:
-            raise NotImplementedError(
-                "quantized KV storage (kv_bits) comes with slice 3 of the port")
+    def _encode(self, k, v) -> Params:
+        """Projected fp k/v (B, S, KVH, Dh) -> the storage leaves this
+        layout persists for them (codes + scales under ``kv_bits``)."""
+        if self.kv_bits is None:
+            return {"k": k, "v": v}
+        kc, ks = kv_quantize(self.kv_bits, k)
+        vc, vs = kv_quantize(self.kv_bits, v)
+        return {"k": kc, "k_scale": ks, "v": vc, "v_scale": vs}
 
     def init(self, b: int, cfg: AttnConfig, cache_len: int,
              dtype=torch.bfloat16, device="cuda") -> Params:
-        shape = (b, cache_len, cfg.n_kv_heads, cfg.d_head)
-        return {
-            "k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
+        (code, cdt), sc = kv_code_shapes(self.kv_bits, cfg.n_kv_heads,
+                                         cfg.d_head, dtype)
+        out = {
+            "k": torch.zeros((b, cache_len) + code, dtype=cdt, device=device),
+            "v": torch.zeros((b, cache_len) + code, dtype=cdt, device=device),
             "slot_pos": torch.full((b, cache_len), -1, dtype=torch.int32,
                                    device=device),
         }
+        if sc is not None:
+            for name in ("k_scale", "v_scale"):
+                out[name] = torch.zeros((b, cache_len) + sc[0], dtype=sc[1],
+                                        device=device)
+        return out
 
     def insert(self, cache: Params, sub: Params,
                slots: torch.Tensor) -> Params:
-        """Write the G batch rows of a prefill sub-cache into batch slots
-        ``slots`` ((G,) distinct indices).  The inserted ``slot_pos`` rows
-        carry -1 beyond the prompt, which retires the previous occupant's
-        stale rows: admission overwrites the WHOLE slot."""
+        """Write the G batch rows of a contiguous fp prefill sub-cache into
+        batch slots ``slots`` ((G,) distinct indices), encoding its k/v
+        under ``kv_bits``.  The inserted ``slot_pos`` rows carry -1 beyond
+        the prompt, which retires the previous occupant's stale rows:
+        admission overwrites the WHOLE slot."""
+        new = {**self._encode(sub["k"], sub["v"]), "slot_pos": sub["slot_pos"]}
         for name, big in cache.items():
-            big[slots] = sub[name].to(big.dtype)
+            big[slots] = new[name].to(big.dtype)
         return cache
 
     def reset(self, cache: Params, slot: int) -> Params:
@@ -181,20 +243,26 @@ class ContiguousKVCache:
         cache["slot_pos"][slot] = -1
         return cache
 
-    def fill(self, cache: Params, k, v, positions) -> Params:
+    def fill(self, cache: Params, k, v, positions,
+             write_mask: torch.Tensor | None = None) -> Params:
         """Store projected k/v (B, S, KVH, Dh) at absolute ``positions``
         (B, S).  Slots are ``pos % cache_len`` (a ring for local layers).
-        S == 1 (decode, per-row positions) is an index write; S > 1
-        (prefill) assumes the standard arange positions: a slice write, or
-        the last cache_len tokens rolled into place when S > cache_len."""
+        S == 1 (decode, per-row positions) is an index write that skips
+        ``write_mask=False`` rows; S > 1 (prefill) assumes the standard
+        arange positions: a slice write, or the last cache_len tokens rolled
+        into place when S > cache_len.  The prefill paths ignore
+        ``write_mask``: storage is slot-private and admission's full-slot
+        ``insert`` overwrites any junk."""
         cache_len = cache["slot_pos"].shape[1]
         s = k.shape[1]
-        new = {"k": k, "v": v, "slot_pos": positions}
+        new = {**self._encode(k, v), "slot_pos": positions}
         if s == 1:
             rows = torch.arange(k.shape[0], device=k.device)
             slots = positions[:, 0].long() % cache_len
+            if write_mask is not None:
+                rows, slots = rows[write_mask], slots[write_mask]
             for name, val in new.items():
-                cache[name][rows, slots] = val[:, 0].to(cache[name].dtype)
+                cache[name][rows, slots] = val[rows, 0].to(cache[name].dtype)
             return cache
         if s <= cache_len:
             for name, val in new.items():
@@ -206,39 +274,231 @@ class ContiguousKVCache:
             cache[name].copy_(torch.roll(val[:, s - cache_len:], shift, dims=1))
         return cache
 
+    def fill_window(self, cache, k, v, positions, write_mask=None):
+        if k.shape[1] == 1:
+            return self.fill(cache, k, v, positions, write_mask)
+        raise NotImplementedError(
+            f"the contiguous layout's window write {_A11}; chunked prefill "
+            "runs on the paged layout")
+
     def gather(self, cache: Params):
-        return cache["k"], cache["v"], cache["slot_pos"]
+        if self.kv_bits is None:
+            return cache["k"], cache["v"], cache["slot_pos"]
+        dh = cache["k"].shape[-1] * (8 if self.kv_bits == 1 else 1)
+        k = kv_dequantize(self.kv_bits, cache["k"], cache["k_scale"], dh)
+        v = kv_dequantize(self.kv_bits, cache["v"], cache["v_scale"], dh)
+        return k, v, cache["slot_pos"]
+
+    def attend(self, cache: Params, q, q_pos, cfg: AttnConfig):
+        b, c = q_pos.shape
+        tile = attn_kernels.select_attn_tiles(
+            b, c, cache["slot_pos"].shape[1], cfg.d_head, "ctg")
+        return attn_kernels.flash_decode_contig(
+            q.to(torch.float32).contiguous(), q_pos.to(torch.int32),
+            cache["k"], cache["v"], cache["slot_pos"], cache.get("k_scale"),
+            cache.get("v_scale"), kv_bits=self.kv_bits, sm_scale=cfg.scale,
+            logit_softcap=cfg.logit_softcap, causal=cfg.causal,
+            window=cfg.window, kv_tile=tile)
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedKVCache(KVCache):
+    """Block-table paged storage over a shared pool.
+
+    Leaves: ``pool_k``/``pool_v`` (num_blocks, block_size, KVH, Dh) (codes
+    under ``kv_bits``, with scale pools ``pool_ks``/``pool_vs`` riding the
+    same flat-index scatters), ``pool_pos`` (num_blocks, block_size) int32
+    absolute token positions (-1 = empty), ``table`` (B, blocks_per_slot)
+    int32 block ids (-1 = unmapped — the whole entry is invisible).  The
+    token at slot-local position ``p`` lives in block ``table[b, p //
+    block_size]`` at offset ``p % block_size``, so ``gather`` reassembles
+    each slot's tokens in position order — value-identical to the
+    contiguous layout's storage, which is what makes paged serving emit the
+    contiguous greedy tokens.
+
+    The host-side allocator (``serve/engine.BlockAllocator``) rewrites
+    table rows and resets freshly allocated blocks' ``pool_pos`` at
+    admission; fill / gather / attend only follow the table.  Invariants
+    the allocator keeps:
+
+    * a block is written by at most one slot position range; shared
+      prompt-prefix blocks are never written (chunked prefill starts at the
+      first novel token and decode writes at pos >= prompt_len);
+    * freshly allocated blocks get ``pool_pos = -1`` before the table row
+      lands, so a previous occupant's stale keys are invisible;
+    * retired slots keep decoding junk in the batch-wide step; their writes
+      MUST be dropped (``write_mask``), because their freed blocks may
+      already belong to another slot.
+    """
+
+    block_size: int = 16
+    kv_bits: int | None = None
+
+    def _encode(self, k, v) -> Params:
+        """Projected fp k/v (B, S, KVH, Dh) -> the pool leaves this layout
+        persists for them (codes + scale pools under ``kv_bits``)."""
+        if self.kv_bits is None:
+            return {"pool_k": k, "pool_v": v}
+        kc, ks = kv_quantize(self.kv_bits, k)
+        vc, vs = kv_quantize(self.kv_bits, v)
+        return {"pool_k": kc, "pool_ks": ks, "pool_v": vc, "pool_vs": vs}
+
+    def _scatter(self, cache: Params, flat, enc: Params, positions) -> Params:
+        """Scatter encoded (B, S, ...) leaves + positions to flattened pool
+        indices ``flat`` ((B*S,); invalid -> nb*bs and dropped, as JAX's
+        ``mode='drop'``)."""
+        nb, bs = cache["pool_pos"].shape
+        keep = flat < nb * bs
+        idx = flat[keep]
+        for name, val in {**enc, "pool_pos": positions}.items():
+            pool = cache[name]
+            rows = val.reshape((flat.shape[0],) + pool.shape[2:])[keep]
+            pool.view((nb * bs,) + pool.shape[2:])[idx] = rows.to(pool.dtype)
+        return cache
+
+    def _flat(self, cache: Params, positions, write_mask):
+        """(B, S) flattened pool indices; invalid / masked writes -> index
+        num_blocks * block_size, which the scatter drops."""
+        bs = self.block_size
+        table = cache["table"]
+        bps = table.shape[1]
+        nb = cache["pool_pos"].shape[0]
+        positions = positions.long()
+        blk_idx = torch.clamp(positions // bs, 0, bps - 1)  # (B, S)
+        blk = torch.take_along_dim(table.long(), blk_idx, dim=1)  # (B, S)
+        valid = (positions >= 0) & (positions < bps * bs) & (blk >= 0)
+        if write_mask is not None:
+            valid &= write_mask[:, None]
+        flat = torch.clamp(blk, min=0) * bs + positions % bs
+        return torch.where(valid, flat, torch.full_like(flat, nb * bs))
+
+    def init(self, b: int, cfg: AttnConfig, cache_len: int,
+             dtype=torch.bfloat16, device="cuda") -> Params:
+        bs = self.block_size
+        if cache_len % bs:
+            raise ValueError(
+                f"cache_len {cache_len} not a multiple of kv block size {bs}")
+        bps = cache_len // bs
+        nb = b * bps  # the contiguous layout's exact footprint
+        (code, cdt), sc = kv_code_shapes(self.kv_bits, cfg.n_kv_heads,
+                                         cfg.d_head, dtype)
+        out = {
+            "pool_k": torch.zeros((nb, bs) + code, dtype=cdt, device=device),
+            "pool_v": torch.zeros((nb, bs) + code, dtype=cdt, device=device),
+            "pool_pos": torch.full((nb, bs), -1, dtype=torch.int32,
+                                   device=device),
+            "table": torch.full((b, bps), -1, dtype=torch.int32, device=device),
+        }
+        if sc is not None:
+            for name in ("pool_ks", "pool_vs"):
+                out[name] = torch.zeros((nb, bs) + sc[0], dtype=sc[1],
+                                        device=device)
+        return out
+
+    def insert(self, cache: Params, sub: Params,
+               slots: torch.Tensor) -> Params:
+        """Write a (G, L, ...) contiguous prefill sub-cache into the G
+        slots' mapped blocks (positions from ``sub['slot_pos']``; -1 rows
+        are dropped — freshly allocated blocks were already pos-reset by
+        the allocator)."""
+        pos = sub["slot_pos"]
+        flat = self._flat({**cache, "table": cache["table"][slots]}, pos, None)
+        return self._scatter(cache, flat.reshape(-1),
+                             self._encode(sub["k"], sub["v"]), pos)
+
+    def reset(self, cache: Params, slot: int) -> Params:
+        """Retire one slot: unmap its table row (-1).  Block bookkeeping is
+        the host allocator's job; pool bytes are untouched, so a block
+        shared with a live slot keeps serving its holder."""
+        cache["table"][slot] = -1
+        return cache
+
+    def fill(self, cache: Params, k, v, positions,
+             write_mask: torch.Tensor | None = None) -> Params:
+        """Scatter k/v/pos through the block table.  Distinct (row, pos)
+        pairs hit distinct pool entries (the allocator never maps a
+        writable position range of two slots onto one block);
+        ``write_mask=False`` rows are dropped entirely."""
+        flat = self._flat(cache, positions, write_mask).reshape(-1)
+        return self._scatter(cache, flat, self._encode(k, v), positions)
+
+    def gather(self, cache: Params):
+        """Dense (B, L, KVH, Dh) views via the table, in position order.
+        Unmapped entries read block 0 but report pos -1, which
+        :func:`_mask` hides."""
+        table = cache["table"]
+        b, bps = table.shape
+        bs = self.block_size
+        safe = torch.clamp(table, min=0).long()
+        k = cache["pool_k"][safe]  # (B, bps, bs, KVH, Dh-coded)
+        v = cache["pool_v"][safe]
+        if self.kv_bits is not None:
+            dh = k.shape[-1] * (8 if self.kv_bits == 1 else 1)
+            k = kv_dequantize(self.kv_bits, k, cache["pool_ks"][safe], dh)
+            v = kv_dequantize(self.kv_bits, v, cache["pool_vs"][safe], dh)
+        pos = cache["pool_pos"][safe].masked_fill(table[:, :, None] < 0, -1)
+        kvh, dh = k.shape[-2:]
+        return (k.reshape(b, bps * bs, kvh, dh), v.reshape(b, bps * bs, kvh, dh),
+                pos.reshape(b, bps * bs))
+
+    def attend(self, cache: Params, q, q_pos, cfg: AttnConfig):
+        b, c = q_pos.shape
+        bps = cache["table"].shape[1]
+        spb = attn_kernels.select_attn_tiles(
+            b, c, bps * self.block_size, cfg.d_head, "pgd")
+        return attn_kernels.flash_decode_paged(
+            cache["table"], q.to(torch.float32).contiguous(),
+            q_pos.to(torch.int32), cache["pool_k"], cache["pool_v"],
+            cache["pool_pos"], cache.get("pool_ks"), cache.get("pool_vs"),
+            block_size=self.block_size, kv_bits=self.kv_bits,
+            sm_scale=cfg.scale, logit_softcap=cfg.logit_softcap,
+            causal=cfg.causal, window=cfg.window,
+            blocks_per_step=min(spb, bps))
 
 
 CONTIGUOUS = ContiguousKVCache()
 
 
-@dataclasses.dataclass(frozen=True)
-class PagedKVCache:
-    """The block-table paged pool — slice 3 of the port."""
-
-    block_size: int = 16
-    kv_bits: int | None = None
-
-    def __post_init__(self):
-        raise NotImplementedError(
-            "PagedKVCache (block-table paged KV) comes with slice 3 of the "
-            "port; use the contiguous cache")
+def _attend(params, q, positions, cache, cfg: AttnConfig, ctx: QCtx, path,
+            kv: KVCache):
+    """Attention of the projected (B, C, H, Dh) queries over the cache they
+    were just written into, then the output projection."""
+    b, c = positions.shape
+    qg = q.reshape(b, c, cfg.n_kv_heads, cfg.groups, cfg.d_head)
+    if cfg.fused_attn:
+        out = kv.attend(cache, qg, positions, cfg)
+    else:
+        k, v, k_pos = kv.gather(cache)
+        out = _sdpa(cfg, qg, k, v, _mask(cfg, positions, k_pos))
+    out = out.reshape(b, c, cfg.n_heads * cfg.d_head).to(ctx.compute_dtype)
+    return ctx.dense(params["o"], out, f"{path}/o")
 
 
 def attn_decode(params: Params, x: torch.Tensor, pos: torch.Tensor,
                 cache: Params, cfg: AttnConfig, ctx: QCtx, path: str,
-                *, kv: ContiguousKVCache | None = None):
-    """One decode step against the cache on the gather + ``_sdpa`` path.
-    x: (B, 1, D); pos: (B,) position of this token.  Returns (out (B,1,D),
-    cache) — the cache is updated in place."""
+                *, kv: KVCache | None = None,
+                write_mask: torch.Tensor | None = None):
+    """One decode step against the cache.  x: (B, 1, D); pos: (B,) position
+    of this token.  ``kv`` selects the layout (default contiguous);
+    ``write_mask`` (B,) drops inactive rows' cache writes (required on the
+    paged layout, where recycled blocks make junk writes unsafe).  Returns
+    (out (B,1,D), cache) — the cache is updated in place."""
     kv = CONTIGUOUS if kv is None else kv
-    b = x.shape[0]
     positions = pos[:, None]
     q, k_new, v_new = _project_qkv(params, x, positions, cfg, ctx, path)
-    cache = kv.fill(cache, k_new, v_new, positions)
-    qg = q.reshape(b, 1, cfg.n_kv_heads, cfg.groups, cfg.d_head)
-    k, v, k_pos = kv.gather(cache)
-    out = _sdpa(cfg, qg, k, v, _mask(cfg, positions, k_pos))
-    out = out.reshape(b, 1, cfg.n_heads * cfg.d_head).to(ctx.compute_dtype)
-    return ctx.dense(params["o"], out, f"{path}/o"), cache
+    cache = kv.fill(cache, k_new, v_new, positions, write_mask)
+    return _attend(params, q, positions, cache, cfg, ctx, path, kv), cache
+
+
+def attn_window(params: Params, x: torch.Tensor, positions: torch.Tensor,
+                cache: Params, cfg: AttnConfig, ctx: QCtx, path: str,
+                kv: KVCache, *, write_mask: torch.Tensor | None = None):
+    """A C-token window against the cache: project, store the window's k/v,
+    then attend over the whole cache (the window included — causality comes
+    from the position mask).  ``attn_decode`` is the C == 1 case; chunked
+    prefill is the general one, where each chunk of a long prompt attends to
+    everything already cached (earlier chunks, shared prefix blocks) plus
+    itself.  x: (B, C, D); positions: (B, C) absolute positions."""
+    q, k_new, v_new = _project_qkv(params, x, positions, cfg, ctx, path)
+    cache = kv.fill_window(cache, k_new, v_new, positions, write_mask)
+    return _attend(params, q, positions, cache, cfg, ctx, path, kv), cache

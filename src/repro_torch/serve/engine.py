@@ -1,9 +1,9 @@
 """Serving engine: a continuous-batching scheduler over the packed-GEMM
-decode step on the contiguous KV cache (PyTorch port of the contiguous lm
-path of ``repro.serve.engine``).
+decode step, with a contiguous OR block-table paged KV cache (PyTorch port of
+the lm path of ``repro.serve.engine``).
 
 ``Scheduler`` owns a FIFO request queue and ``EngineConfig.batch`` KV-cache
-slots:
+slots.  The **contiguous** loop (``EngineConfig.kv_block_size=None``):
 
 * **admission** — free slots are filled from the queue head: the maximal
   run of queued requests with the same prompt length prefills together
@@ -19,14 +19,54 @@ slots:
   ``min_tokens``) or exhausts ``max_new_tokens``, its slot is reset and
   becomes eligible for the next queued request.
 
-Greedy outputs are bit-identical to per-request generation because every
-per-token op is batch-row independent.  Sampling at temperature > 0 draws
-from a ``torch.Generator`` seeded per request from ``(seed, rid)`` and
-advanced once per emitted token, so a request's stream does not depend on
-its batchmates; it cannot reproduce the JAX package's threefry streams.
+The **paged** loop (``EngineConfig.kv_block_size=bs``) swaps the per-slot
+slabs for one shared pool of ``batch * cache_len/bs`` blocks plus per-slot
+int32 block tables (``nn/attention.PagedKVCache``), with prefix sharing and
+chunked prefill on top.  ``BlockAllocator`` is the single owner of block
+lifetime; the model only FOLLOWS the tables:
 
-Paged KV, speculative decoding, fused decode attention and the whisper
-family are not in this slice.
+* every block is free, cached (refcount 0, contents kept under its prefix
+  chain hash, LRU-evictable) or active (refcount >= 1); shared prefix
+  blocks are never written, because chunked prefill starts at the first
+  novel token and decode writes at ``pos >= prompt_len``, both strictly past
+  every shared full block (admission caps sharing at ``(prompt_len - 1) //
+  bs`` blocks);
+* freshly allocated blocks get ``pool_pos = -1`` BEFORE their table row
+  lands (``Engine._map_slot``), so a previous occupant's stale keys are
+  invisible;
+* retired, idle and still-prefilling slots ride through the batch-wide
+  decode step with ``write_mask=False``: their junk writes are DROPPED,
+  because their blocks may already belong to another slot;
+* retirement releases each held block exactly once (``SlotState.blocks`` is
+  cleared as it is released); a shared block returns to the free list only
+  when its LAST holder retires, and registered prefix blocks retire into the
+  cached state, so a later identical-prefix request skips their prefill —
+  ``SchedulerStats.shared_tokens`` counts the skipped tokens.
+
+**Chunked prefill**: admission is per request; each scheduler iteration
+advances every prefilling slot by one window of up to
+``EngineConfig.prefill_chunk`` tokens (``models/lm.decode_window``) and THEN
+runs one decode step for the decoding slots, so batchmates' inter-token
+latency is bounded by one chunk instead of one whole prompt.  A slot samples
+its first token from the window that ends on its last prompt token — the
+position the contiguous prefill samples from.
+
+**Quantized KV** (``EngineConfig.kv_bits``): the pool (or slab) stores int8
+codes or 1-bit sign bytes, with the scales beside the blocks in leaves
+indexed by the same flat indices, so nothing above ``nn/attention`` knows
+the tier exists.  **Fused attention** (``EngineConfig.fused_attn``) reads
+that storage in place through the tables with the flash-decode kernel
+instead of gathering it (``kernels/attn_decode.py``).
+
+Greedy outputs are bit-identical to per-request generation because every
+per-token op is batch-row independent, and the paged gather reassembles
+each slot's tokens in exactly the contiguous position order.  Sampling at
+temperature > 0 draws from a ``torch.Generator`` seeded per request from
+``(seed, rid)`` and advanced once per emitted token, so a request's stream
+does not depend on its batchmates; it cannot reproduce the JAX package's
+threefry streams.
+
+Speculative decoding and the whisper family are not in the port yet.
 """
 
 from __future__ import annotations
@@ -43,6 +83,7 @@ import torch
 from repro_torch.configs.common import ArchSpec
 from repro_torch.kernels.dispatch import GemmConfig
 from repro_torch.models import lm as lm_model
+from repro_torch.nn import attention as attn_lib
 from repro_torch.nn.common import QCtx
 
 Params = dict[str, Any]
@@ -99,6 +140,25 @@ class EngineConfig:
     # per-engine override of how quantized GEMMs execute; None inherits
     # the QCtx's gemm_config
     gemm_config: GemmConfig | None = None
+    # None = contiguous per-slot KV slabs.  An int selects the block-table
+    # paged pool with this block size; cache_len must divide.
+    kv_block_size: int | None = None
+    # max tokens per prefill window in paged mode (None = whole prompt in
+    # one window); smaller chunks bound batchmates' inter-token latency
+    prefill_chunk: int | None = None
+    # paged mode: hash full prompt blocks at admission and reuse
+    # already-prefilled blocks across identical-prefix requests
+    shared_prefix: bool = False
+    # route decode / window attention through the flash-decode kernel
+    # (kernels/attn_decode.py) instead of gather + _sdpa: reads the KV
+    # storage in place through the block tables (paged) or as a tiled slab
+    # (contiguous).  False keeps the gather oracle.
+    fused_attn: bool = False
+    # KV-cache storage tier: None = fp compute dtype; 8 = int8 codes + per-
+    # (head, dh-group) absmax scales; 1 = sign bytes + per-head alpha (the
+    # XNOR tier).  Scale leaves live beside the code leaves and ride the
+    # same writes.
+    kv_bits: int | None = None
 
 
 @dataclasses.dataclass
@@ -126,12 +186,21 @@ class SlotState:
     seed: int = 0
     tokens: list = dataclasses.field(default_factory=list)
     generator: torch.Generator | None = None  # sampled requests only
+    # -- paged-mode fields --
+    phase: str = "decode"  # "prefill" until the whole prompt is in-cache
+    prompt: np.ndarray | None = None  # kept for chunked prefill windows
+    prefill_done: int = 0  # prompt tokens already in-cache (incl. shared)
+    n_shared: int = 0  # leading blocks reused from the prefix index
+    blocks: list = dataclasses.field(default_factory=list)  # held block ids
+    block_hashes: list = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
 class SchedulerStats:
     steps: int = 0  # decode steps executed
-    prefills: int = 0  # prefill (admission) calls
+    prefills: int = 0  # prefill (admission / chunk window) calls
+    prefill_tokens: int = 0  # prompt tokens actually prefilled (paged)
+    shared_tokens: int = 0  # prompt tokens skipped via prefix sharing
     admissions: list = dataclasses.field(default_factory=list)  # (rid, slot)
     t_first: dict = dataclasses.field(default_factory=dict)  # rid -> s
     t_done: dict = dataclasses.field(default_factory=dict)  # rid -> s
@@ -154,6 +223,91 @@ def _request_generator(seed: int, rid: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(state) >> 1)
 
 
+class BlockAllocator:
+    """Host-side owner of paged-pool block lifetime.
+
+    States: **free** (on the free list), **active** (refcount >= 1, held
+    by at least one slot), **cached** (refcount 0 but contents retained
+    under a prompt-prefix chain hash; reusable by ``lookup`` or evicted
+    LRU-first when the free list runs dry).  The pool holds exactly
+    ``batch * cache_len / block_size`` blocks — every slot maps at most
+    ``cache_len / block_size`` distinct blocks, so allocation (with
+    cached-block eviction) can never fail for an admissible request.
+    """
+
+    def __init__(self, num_blocks: int, block_size: int):
+        self.block_size = block_size
+        self.free: list[int] = list(range(num_blocks))
+        self.refs: dict[int, int] = {}  # block -> refcount (active only)
+        self.hash_of: dict[int, Any] = {}  # registered block -> chain hash
+        self.index: dict[Any, int] = {}  # chain hash -> block
+        # refcount-0 registered blocks, insertion order == release order
+        self.cached: collections.OrderedDict[int, None] = \
+            collections.OrderedDict()
+
+    def lookup(self, h) -> int | None:
+        """Take a reference on the live block registered under chain hash
+        ``h`` (reviving it from the cached state if needed)."""
+        blk = self.index.get(h)
+        if blk is None:
+            return None
+        self.cached.pop(blk, None)
+        self.refs[blk] = self.refs.get(blk, 0) + 1
+        return blk
+
+    def alloc(self) -> int:
+        """A fresh refcount-1 block; evicts the LRU cached prefix block
+        when the free list is empty."""
+        if self.free:
+            blk = self.free.pop()
+        elif self.cached:
+            blk, _ = self.cached.popitem(last=False)
+            del self.index[self.hash_of.pop(blk)]
+        else:
+            raise RuntimeError("KV block pool exhausted")
+        self.refs[blk] = 1
+        return blk
+
+    def register(self, blk: int, h) -> None:
+        """Publish an owned, fully-written full-prompt block under its
+        chain hash (first writer wins on hash collision)."""
+        if h in self.index:
+            return
+        self.index[h] = blk
+        self.hash_of[blk] = h
+
+    def release(self, blk: int) -> None:
+        """Drop one reference; the last release frees (or, for registered
+        prefix blocks, caches) the block.  Releasing a non-active block is
+        a refcount bug and raises."""
+        rc = self.refs.get(blk, 0)
+        if rc <= 0:
+            raise RuntimeError(f"double release of KV block {blk}")
+        if rc > 1:
+            self.refs[blk] = rc - 1
+            return
+        del self.refs[blk]
+        if blk in self.hash_of:
+            self.cached[blk] = None
+        else:
+            self.free.append(blk)
+
+    def trim(self, blocks: list[int], keep: int) -> list[int]:
+        """Release the tail of a slot's held-block list — one reference
+        drop per tail block (the LAST holder frees, or caches registered
+        prefix blocks).  Returns the kept prefix; the caller MUST adopt
+        it as its new held list, which is what makes a second trim/release
+        of the same tail a loud ``release`` error instead of silent
+        corruption.  ``keep=0`` is full retirement."""
+        for blk in blocks[keep:]:
+            self.release(blk)
+        return blocks[:keep]
+
+    @property
+    def live_blocks(self) -> int:
+        return len(self.refs)
+
+
 class Engine:
     """Owns the model entry points + the QCtx/GemmConfig wiring for one
     lm-family model.  Request-level serving goes through
@@ -167,29 +321,73 @@ class Engine:
                 f"the port serves the lm family only (got {spec.family!r})")
         if ecfg.gemm_config is not None:
             ctx = dataclasses.replace(ctx, gemm_config=ecfg.gemm_config)
+        if ecfg.fused_attn or ecfg.kv_bits is not None:
+            if ecfg.kv_bits not in (None, 8, 1):
+                raise ValueError(
+                    f"kv_bits must be None, 8 or 1, got {ecfg.kv_bits}")
+            # thread the execution / storage tier into the model's
+            # attention config
+            cfg = dataclasses.replace(
+                cfg, attn=dataclasses.replace(
+                    cfg.attn, fused_attn=ecfg.fused_attn,
+                    kv_bits=ecfg.kv_bits))
         self.spec, self.cfg, self.ctx, self.ecfg = spec, cfg, ctx, ecfg
         self.params = params
         self.device = params["embed"]["table"].device
+        self.kv: attn_lib.KVCache = attn_lib.CONTIGUOUS
+        if ecfg.kv_bits is not None:
+            self.kv = attn_lib.ContiguousKVCache(kv_bits=ecfg.kv_bits)
+        if ecfg.kv_block_size is not None:
+            if ecfg.cache_len % ecfg.kv_block_size:
+                raise ValueError(
+                    f"cache_len {ecfg.cache_len} is not a multiple of "
+                    f"kv_block_size {ecfg.kv_block_size}")
+            self.kv = attn_lib.PagedKVCache(block_size=ecfg.kv_block_size,
+                                            kv_bits=ecfg.kv_bits)
+
+    @property
+    def paged(self) -> bool:
+        return isinstance(self.kv, attn_lib.PagedKVCache)
 
     def _prefill(self, tokens: torch.Tensor):
         return lm_model.prefill(self.params, self.cfg, self.ctx, tokens,
                                 cache_len=self.ecfg.cache_len)
 
-    def _decode(self, cache: Params, tokens: torch.Tensor, pos: torch.Tensor):
+    def _decode(self, cache: Params, tokens: torch.Tensor, pos: torch.Tensor,
+                write_mask: torch.Tensor | None = None):
         return lm_model.decode_step(self.params, self.cfg, self.ctx, cache,
-                                    tokens, pos)
+                                    tokens, pos, kv=self.kv,
+                                    write_mask=write_mask)
+
+    def _window(self, cache: Params, tokens: torch.Tensor,
+                pos_start: torch.Tensor, write_mask: torch.Tensor):
+        return lm_model.decode_window(self.params, self.cfg, self.ctx, cache,
+                                      tokens, pos_start, self.kv,
+                                      write_mask=write_mask)
+
+    def _map_slot(self, cache: Params, slot: int, row: list[int],
+                  fresh: list[int]) -> Params:
+        """Point slot ``slot``'s table row at blocks ``row`` in every layer,
+        after resetting the freshly allocated blocks ``fresh`` to empty."""
+        row_t = torch.as_tensor(row, dtype=torch.int32, device=self.device)
+        fresh_t = torch.as_tensor(fresh, dtype=torch.long, device=self.device)
+        for lc in cache["layers"]:
+            lc["pool_pos"][fresh_t] = -1
+            lc["table"][slot] = row_t
+        return cache
 
     def _insert(self, cache: Params, sub: Params, slots: torch.Tensor):
-        return lm_model.cache_insert(cache, sub, slots)
+        return lm_model.cache_insert(cache, sub, slots, self.kv)
 
     def _reset(self, cache: Params, slot: int):
-        return lm_model.cache_reset(self.cfg, cache, slot)
+        return lm_model.cache_reset(self.cfg, cache, slot, self.kv)
 
     def init_cache(self) -> Params:
         """A fresh all-slots-empty serving cache (batch x cache_len)."""
         return lm_model.init_cache(self.cfg, self.ecfg.batch,
                                    self.ecfg.cache_len,
-                                   self.ctx.compute_dtype, self.device)
+                                   self.ctx.compute_dtype, self.device,
+                                   kv=self.kv)
 
     def _sample(self, logits: torch.Tensor, gens, temps,
                 active: torch.Tensor | None = None) -> torch.Tensor:
@@ -242,7 +440,9 @@ class Scheduler:
     ``submit`` queues requests; ``run`` drives admission / decode /
     retirement until queue and batch drain, returning ``{rid: (n_tokens,)
     int32}`` (the emitted stream, ending with the eos token when one
-    triggered retirement)."""
+    triggered retirement).  With a paged engine the loop swaps grouped
+    prefill for per-request chunked prefill + prefix sharing (module
+    docstring has the invariants)."""
 
     def __init__(self, engine: Engine):
         self.eng = engine
@@ -251,6 +451,10 @@ class Scheduler:
         self.stats = SchedulerStats()
         self._results: dict[int, np.ndarray] = {}
         self._next_rid = 0
+        if engine.paged:
+            bs = engine.kv.block_size
+            self.bps = engine.ecfg.cache_len // bs
+            self.alloc = BlockAllocator(engine.ecfg.batch * self.bps, bs)
 
     def submit(self, request: Request) -> int:
         if request.rid is None:
@@ -325,12 +529,10 @@ class Scheduler:
 
             prompts = np.stack([np.asarray(r.prompt) for r in group])
             states = [self._new_state(r) for r in group]
-            logits, sub_cache = eng._prefill(
-                torch.as_tensor(prompts, dtype=torch.long, device=eng.device))
+            logits, sub_cache = eng._prefill(self._device(prompts, torch.long))
             self.stats.prefills += 1
             first = self._sample_for(logits, states)
-            cache = eng._insert(cache, sub_cache,
-                                torch.as_tensor(taken, device=eng.device))
+            cache = eng._insert(cache, sub_cache, self._device(taken))
             start_pos = prompts.shape[1]
             for g, i in enumerate(taken):
                 st = states[g]
@@ -346,8 +548,13 @@ class Scheduler:
                     pos[i] = start_pos
         return cache, tok, pos
 
+    def _device(self, x: np.ndarray, dtype=None) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=dtype, device=self.eng.device)
+
     @torch.inference_mode()
     def run(self) -> dict[int, np.ndarray]:
+        if self.eng.paged:
+            return self._run_paged()
         eng, ecfg = self.eng, self.eng.ecfg
         self._t0 = time.perf_counter()
         cache = eng.init_cache()
@@ -361,11 +568,10 @@ class Scheduler:
             if not active.any():
                 continue  # everything admitted retired on its first token
             logits, cache = eng._decode(
-                cache,
-                torch.as_tensor(tok, dtype=torch.long, device=eng.device)[:, None],
-                torch.as_tensor(pos, device=eng.device))
-            sampled = self._sample_for(
-                logits, self.slots, torch.as_tensor(active, device=eng.device))
+                cache, self._device(tok, torch.long)[:, None],
+                self._device(pos))
+            sampled = self._sample_for(logits, self.slots,
+                                       self._device(active))
             self.stats.steps += 1
             pos = np.where(active, pos + 1, pos).astype(np.int32)
             tok = np.where(active, sampled, tok).astype(np.int32)
@@ -373,4 +579,143 @@ class Scheduler:
                 st = self.slots[i]
                 if st is not None and self._emit(i, st, int(sampled[i])):
                     cache = eng._reset(cache, i)
+        return self._results
+
+    # -- paged path --------------------------------------------------------
+
+    def _release_slot(self, cache, i: int, st: SlotState):
+        """Retirement bookkeeping: drop every held block reference exactly
+        once, then unmap the slot's table row."""
+        st.blocks = self.alloc.trim(st.blocks, 0)
+        return self.eng._reset(cache, i)
+
+    def _admit_paged(self, cache):
+        """Per-request admission: allocate the slot's block-table row
+        (reusing registered prefix blocks when ``shared_prefix`` is on)
+        and queue the slot for chunked prefill of the novel suffix."""
+        eng, ecfg = self.eng, self.eng.ecfg
+        bs = eng.kv.block_size
+        for i in range(ecfg.batch):
+            if self.slots[i] is not None or not self.queue:
+                continue
+            r = self.queue.popleft()
+            prompt = np.ascontiguousarray(np.asarray(r.prompt, np.int32))
+            st = self._new_state(r)
+            st.phase = "prefill"
+            st.prompt = prompt
+            self.stats.admissions.append((st.rid, i))
+            if st.budget <= 0:  # zero-token request: empty stream
+                self.slots[i] = st
+                self._retire(i, st)
+                continue
+            ln = len(prompt)
+            n_sh = 0
+            if ecfg.shared_prefix:
+                # chain hash per FULL prompt block; block j's hash pins the
+                # whole prefix prompt[:(j+1)*bs], not just its own tokens
+                h = 0
+                for j in range(ln // bs):
+                    h = hash((h, prompt[j * bs:(j + 1) * bs].tobytes()))
+                    st.block_hashes.append(h)
+                # cap at (ln-1)//bs: the last prompt token (and everything
+                # decode writes) stays strictly past every shared block
+                for j in range((ln - 1) // bs):
+                    blk = self.alloc.lookup(st.block_hashes[j])
+                    if blk is None:
+                        break
+                    st.blocks.append(blk)
+                    n_sh += 1
+            fresh = [self.alloc.alloc() for _ in range(self.bps - n_sh)]
+            st.blocks += fresh
+            st.n_shared = n_sh
+            st.prefill_done = n_sh * bs
+            self.stats.shared_tokens += n_sh * bs
+            self.slots[i] = st
+            cache = eng._map_slot(cache, i, st.blocks, fresh)
+        return cache
+
+    def _prefill_chunk(self, cache, tok, pos, pre: list[int], chunk: int):
+        """Advance every prefilling slot by one window of up to ``chunk``
+        tokens (width = min remaining, so no row overruns its prompt).  A
+        row whose window ends on its last prompt token samples its first
+        output from the window logits and flips to decode."""
+        eng, ecfg = self.eng, self.eng.ecfg
+        b = ecfg.batch
+        c = min([self.slots[i].prompt_len - self.slots[i].prefill_done
+                 for i in pre] + [chunk])
+        tokens = np.zeros((b, c), np.int32)
+        pos_start = np.zeros((b,), np.int32)
+        wm = np.zeros((b,), bool)
+        for i in pre:
+            st = self.slots[i]
+            tokens[i] = st.prompt[st.prefill_done:st.prefill_done + c]
+            pos_start[i] = st.prefill_done
+            wm[i] = True
+        logits, cache = eng._window(cache, self._device(tokens, torch.long),
+                                    self._device(pos_start),
+                                    self._device(wm))
+        self.stats.prefills += 1
+        self.stats.prefill_tokens += c * len(pre)
+        fin = [i for i in pre
+               if self.slots[i].prefill_done + c == self.slots[i].prompt_len]
+        first = None
+        if fin:
+            states = [self.slots[i] if i in fin else None for i in range(b)]
+            first = self._sample_for(
+                logits, states,
+                self._device(np.array([s is not None for s in states])))
+        for i in pre:
+            st = self.slots[i]
+            st.prefill_done += c
+            if st.prefill_done < st.prompt_len:
+                continue
+            if ecfg.shared_prefix:
+                # the slot's own full prompt blocks are now written; make
+                # them discoverable for later identical-prefix requests
+                for j in range(st.n_shared, len(st.block_hashes)):
+                    self.alloc.register(st.blocks[j], st.block_hashes[j])
+            st.phase = "decode"
+            st.prompt = None  # the cache holds it now
+            if self._emit(i, st, int(first[i])):
+                cache = self._release_slot(cache, i, st)
+            else:
+                tok[i] = first[i]
+                pos[i] = st.prompt_len
+        return cache, tok, pos
+
+    def _run_paged(self) -> dict[int, np.ndarray]:
+        eng, ecfg = self.eng, self.eng.ecfg
+        self._t0 = time.perf_counter()
+        cache = eng.init_cache()
+        b = ecfg.batch
+        tok = np.zeros((b,), np.int32)
+        pos = np.zeros((b,), np.int32)
+        chunk = ecfg.prefill_chunk or ecfg.cache_len
+
+        while self.queue or any(s is not None for s in self.slots):
+            cache = self._admit_paged(cache)
+            pre = [i for i, s in enumerate(self.slots)
+                   if s is not None and s.phase == "prefill"]
+            if pre:
+                cache, tok, pos = self._prefill_chunk(cache, tok, pos, pre,
+                                                      chunk)
+            dec = np.array([s is not None and s.phase == "decode"
+                            for s in self.slots])
+            if not dec.any():
+                continue  # all slots still prefilling (or just drained)
+            dec_t = self._device(dec)
+            logits, cache = eng._decode(
+                cache, self._device(tok, torch.long)[:, None],
+                self._device(pos), dec_t)
+            states = [s if (s is not None and s.phase == "decode") else None
+                      for s in self.slots]
+            sampled = self._sample_for(logits, states, dec_t)
+            self.stats.steps += 1
+            pos = np.where(dec, pos + 1, pos).astype(np.int32)
+            tok = np.where(dec, sampled, tok).astype(np.int32)
+            for i in range(b):
+                st = self.slots[i]
+                if (st is not None and st.phase == "decode"
+                        and self._emit(i, st, int(sampled[i]))):
+                    cache = self._release_slot(cache, i, st)
         return self._results

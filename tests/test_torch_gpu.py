@@ -12,9 +12,10 @@ import torch
 
 from repro_torch.core import bitpack, converter, quant
 from repro_torch.core.policy import QuantPolicy
-from repro_torch.kernels import (_cuda, dispatch, kbit_gemm, kbit_mxu,
-                                 pack_bits, xnor_gemm)
+from repro_torch.kernels import (_cuda, attn_decode, dispatch, kbit_gemm,
+                                 kbit_mxu, pack_bits, xnor_gemm)
 from repro_torch.models import lm, registry
+from repro_torch.nn import attention
 from repro_torch.nn.common import QCtx
 from repro_torch.serve import engine
 
@@ -76,7 +77,8 @@ def test_launch_counts(cuda):
     dispatch.quant_gemm(x.cpu(), w.cpu(), k_true=70)  # plain versions
     assert _cuda.LAUNCHES == {"pack_sign": 3, "xnor_mismatch": 1,
                               "xnor_dot_mxu": 1, "quant_pack_planes": 0,
-                              "kbit_plane_gemm": 0, "kbit_mxu_gemm": 0}
+                              "kbit_plane_gemm": 0, "kbit_mxu_gemm": 0,
+                              "flash_decode": 0}
 
 
 @pytest.mark.parametrize("backend", ["vpu", "mxu"])
@@ -141,7 +143,8 @@ def test_kbit_launch_counts(cuda):
     dispatch.quant_gemm(x.cpu(), w.cpu(), k_true=70, w_bits=4, a_bits=4)
     assert _cuda.LAUNCHES == {"pack_sign": 0, "xnor_mismatch": 0,
                               "xnor_dot_mxu": 0, "quant_pack_planes": 3,
-                              "kbit_plane_gemm": 1, "kbit_mxu_gemm": 1}
+                              "kbit_plane_gemm": 1, "kbit_mxu_gemm": 1,
+                              "flash_decode": 0}
 
 
 @pytest.mark.parametrize("backend", ["vpu", "mxu"])
@@ -221,3 +224,88 @@ def test_smoke_serving_w4a4_vpu_equals_mxu_on_card(cuda):
     assert sorted(streams["vpu"]) == [0, 1, 2, 3]
     for rid in streams["vpu"]:
         np.testing.assert_array_equal(streams["vpu"][rid], streams["mxu"][rid])
+
+
+def _paged_case(dev, tier, b, c, g, dh, bs=16, bps=7, kvh=2, seed=0):
+    """A shuffled pool holding ragged slots (slot 0 with a -1 entry in the
+    middle of its table, the last slot unmapped), stale positions in
+    unmapped blocks, and q at each slot's frontier.  ``tier``: "fp32",
+    "bf16", 8 or 1."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    nb = b * bps + 3
+    table = torch.randperm(nb, generator=gen, device=dev)[:b * bps]
+    table = table.view(b, bps).to(torch.int32)
+    table[0, bps // 2] = -1
+    table[-1] = -1
+    lens = torch.randint(1, bps * bs, (b,), generator=gen, device=dev)
+    lens[0] = bps * bs
+    pool_pos = torch.randint(0, bps * bs, (nb, bs), generator=gen,
+                             device=dev, dtype=torch.int32)
+    p = torch.arange(bps * bs, device=dev, dtype=torch.int32).view(bps, bs)
+    for r in range(b):
+        for j in range(bps):
+            if table[r, j] >= 0:
+                pool_pos[table[r, j]] = torch.where(p[j] < lens[r], p[j], -1)
+
+    def storage():
+        x = torch.randn((nb, bs, kvh, dh), generator=gen, device=dev)
+        if tier in ("fp32", "bf16"):
+            return x.to(torch.bfloat16 if tier == "bf16" else torch.float32), None
+        return attn_decode.kv_quantize(tier, x)
+
+    pk, ks = storage()
+    pv, vs = storage()
+    q = torch.randn((b, c, kvh, g, dh), generator=gen, device=dev)
+    q_pos = (lens[:, None] - c + torch.arange(c, device=dev)).to(torch.int32)
+    return dict(table=table, q=q, q_pos=q_pos, pool_k=pk, pool_v=pv,
+                pool_pos=pool_pos, k_scale=ks, v_scale=vs), bs
+
+
+@pytest.mark.parametrize("tier", ["fp32", "bf16", 8, 1])
+@pytest.mark.parametrize("c,g,dh", [(1, 4, 64), (4, 1, 128), (37, 4, 64)])
+@pytest.mark.parametrize("cap,window", [(None, None), (30.0, 40)])
+def test_flash_decode_kernel_matches_plain(cuda, tier, c, g, dh, cap, window):
+    """K11 against its plain version on the card: rows that see a key
+    within atol 2e-5 (unit-scale inputs; the bf16 pool too, whose values
+    both sides read exactly in fp32), the unmapped slot exact zeros."""
+    inp, bs = _paged_case(cuda, tier, 3, c, g, dh, seed=c + dh)
+    kv_bits = tier if isinstance(tier, int) else None
+    opts = dict(block_size=bs, kv_bits=kv_bits, sm_scale=dh ** -0.5,
+                logit_softcap=cap, window=window)
+    got = attn_decode.flash_decode_paged(**inp, **opts)
+    torch.cuda.synchronize()
+    want = attn_decode.flash_decode_paged_plain(
+        **inp, **{k: v for k, v in opts.items() if k != "block_size"})
+    kpos = torch.where(inp["table"][:, :, None] >= 0,
+                       inp["pool_pos"][inp["table"].clamp(min=0).long()], -1)
+    kp, qp = kpos.view(3, 1, -1), inp["q_pos"][:, :, None]
+    vis = (kp >= 0) & (kp <= qp)
+    if window is not None:
+        vis &= kp > qp - window
+    vis = vis.any(-1)
+    torch.testing.assert_close(got[vis], want[vis], rtol=0, atol=2e-5)
+    assert torch.equal(got[-1], torch.zeros_like(got[-1]))
+
+
+@pytest.mark.parametrize("tier", ["fp32", 8, 1])
+def test_flash_decode_contig_and_launch_count(cuda, tier):
+    """The contiguous route reaches the same kernel through an identity
+    table, and each call counts one launch."""
+    kv_bits = tier if isinstance(tier, int) else None
+    kv = attention.ContiguousKVCache(kv_bits=kv_bits)
+    cfg = attention.AttnConfig(d_model=256, n_heads=8, n_kv_heads=2,
+                               d_head=64, fused_attn=True, kv_bits=kv_bits)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    cache = kv.init(2, cfg, 1536, torch.float32, cuda)
+    k = torch.randn((2, 1000, 2, 64), generator=gen, device=cuda)
+    v = torch.randn((2, 1000, 2, 64), generator=gen, device=cuda)
+    pos = torch.arange(1000, device=cuda, dtype=torch.int32).expand(2, 1000)
+    kv.fill(cache, k, v, pos)
+    q = torch.randn((2, 1, 2, 4, 64), generator=gen, device=cuda)
+    q_pos = torch.tensor([[999], [500]], dtype=torch.int32, device=cuda)
+    _cuda.reset_launches()
+    got = kv.attend(cache, q, q_pos, cfg)
+    assert _cuda.LAUNCHES["flash_decode"] == 1
+    kk, vv, kpos = kv.gather(cache)
+    want = attention._sdpa(cfg, q, kk, vv, attention._mask(cfg, q_pos, kpos))
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-5)

@@ -197,17 +197,21 @@ def test_contiguous_cache_fill_insert_reset_match_jax():
 
 
 def test_slice_3_paths_raise():
+    """Slice 3's paged / fused / quantized-KV half is ported and
+    constructs; its speculative half (ROADMAP A11) and ``_sdpa_chunked``
+    still raise, naming what is missing."""
     acfg = registry.get("granite-3-2b").smoke.attn
     import dataclasses
 
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        dataclasses.replace(acfg, fused_attn=True)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        dataclasses.replace(acfg, kv_bits=8)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        attention.PagedKVCache()
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        attention.ContiguousKVCache(kv_bits=1)
+    assert dataclasses.replace(acfg, fused_attn=True, kv_bits=8).kv_bits == 8
+    assert attention.PagedKVCache(kv_bits=1).block_size == 16
+    kv = attention.ContiguousKVCache(kv_bits=1)
+    cache = kv.init(1, acfg, 8, torch.float32, "cpu")
+    with pytest.raises(NotImplementedError, match="speculative decoding"):
+        kv.truncate(cache, torch.tensor([2]))
+    kw = torch.zeros((1, 2, acfg.n_kv_heads, acfg.d_head))
+    with pytest.raises(NotImplementedError, match="speculative decoding"):
+        kv.fill_window(cache, kw, kw, torch.tensor([[2, 3]]))
     long_cfg = dataclasses.replace(acfg, full_attn_max_seq=4)
     q = torch.zeros((1, 5, acfg.n_kv_heads, acfg.groups, acfg.d_head))
     k = torch.zeros((1, 5, acfg.n_kv_heads, acfg.d_head))

@@ -247,3 +247,23 @@ def test_serve_launcher_kbit_checks_fakequant(backend, capsys):
     assert serve_cli.parse_quant("w4a8") == QuantPolicy.quantized(4, 8)
     with pytest.raises(ValueError, match="bad quant"):
         serve_cli.parse_quant("int4")
+
+
+def test_serve_launcher_paged_fused_kv8(capsys):
+    """The paged / chunked / shared-prefix / fused / int8-KV flags reach
+    the engine, and the 1-bit packed streams still equal fake-quant's."""
+    flags = ["--arch", "granite-3-2b", "--smoke", "--device", "cpu",
+             "--layers", "1", "--prompts", "2", "--prompt-len", "4",
+             "--new-tokens", "3", "--cache-len", "16", "--kv-block-size", "4",
+             "--prefill-chunk", "5", "--shared-prefix", "--fused-attn",
+             "--kv-bits", "8"]
+    out = serve_cli.main(flags + ["--check-fakequant"])
+    assert sorted(out) == [0, 1] and all(len(v) == 3 for v in out.values())
+    text = capsys.readouterr().out
+    assert ("KV cache: paged, int8 storage; decode attention: fused "
+            "flash-decode kernel") in text
+    assert "paged KV: 16 prompt tokens prefilled" in text
+    assert "packed == fake-quant: True" in text
+    bad = flags[:flags.index("--kv-block-size") + 1] + ["5"]
+    with pytest.raises(ValueError, match="not a multiple of kv_block_size 5"):
+        serve_cli.main(bad)
