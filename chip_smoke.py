@@ -338,8 +338,8 @@ def visible(kpos, q_pos, window):
 
 def parity_attn(dev) -> float:
     """K11 against its plain version over fp32 / bf16 / int8 / 1-bit pools,
-    paged (block 16, 7 entries per slot: not a multiple of the default 4
-    per split step) and contiguous, C in {1, 4, 256}, G in {1, 4}, Dh in
+    paged (block 16, 7 entries per slot, so 32-key chunks span blocks and
+    the last one is short) and contiguous, C in {1, 4, 256}, G in {1, 4}, Dh in
     {64, 128}, softcap and window each on and off, ragged lengths, a -1
     entry mid-table and an unmapped slot.  Rows that see a key must agree
     within 2e-5 (unit-scale inputs, the JAX test's tolerance; bf16 pools
@@ -595,7 +595,9 @@ def timing_attn(dev) -> list:
     bound: the larger of the bytes (K/V codes and scales of every row the
     mask admits, the pool_pos of mapped blocks, the table, q, q_pos, out) at
     the HBM rate and 4*G*Dh fp32 operations per (query row, admitted key,
-    kv-head) at the fp32 peak."""
+    kv-head) at the fp32 peak.  Each row is also a parity gate at these
+    shapes: the kernel's output must agree with the plain version's within
+    ``ATTN_TOL`` on every query row that sees a key, and be finite."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import attn_decode as ak
@@ -611,6 +613,18 @@ def timing_attn(dev) -> list:
             gen = torch.Generator(device=dev).manual_seed(SEED + 6)
             args, kpos = attn_case(dev, gen, tier, "paged", lens, c, g, dh,
                                    bps, kvh, holes=False)
+            got = attn_call(False, "paged", args, tier, sm_scale=sm)
+            want = attn_call(True, "paged", args, tier, sm_scale=sm)
+            torch.cuda.synchronize()
+            vis = visible(kpos, args["q_pos"], None)
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"K11 {tier} C={c} serving shapes: "
+                                     "non-finite output")
+            max_err = float((got[vis] - want[vis]).abs().max())
+            if max_err > ATTN_TOL:
+                raise AssertionError(f"K11 {tier} C={c} serving shapes: max "
+                                     f"|err| {max_err} > {ATTN_TOL}")
+            del got, want
             pool_bytes = 2 * args["pool_pos"].numel() * kvh * kv_row_bytes(tier, dh)
             copies = [args] + [
                 {**args, **{k: args[k].clone() for k in
@@ -649,7 +663,8 @@ def timing_attn(dev) -> list:
                       + 2 * args["q"].numel() * 4 + args["q_pos"].numel() * 4)
             ops = 4 * g * dh * kvh * int(adm.sum())
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS_PER_S
-            row = dict(c=c, tier=str(tier), lens=lens, ms=ms, plain_ms=plain_ms,
+            row = dict(c=c, tier=str(tier), lens=lens, max_abs_err=max_err,
+                       ms=ms, plain_ms=plain_ms,
                        library_ms=library_ms, bytes=nbytes, ops=ops,
                        bound_ms=max(t_bytes, t_ops) * 1e3,
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -659,7 +674,8 @@ def timing_attn(dev) -> list:
                   f"lens {lens}) (us): kernel {ms * 1e3:.3f} plain "
                   f"{plain_ms * 1e3:.3f} library {library_ms * 1e3:.3f} bound "
                   f"{row['bound_ms'] * 1e3:.3f} ({row['bound_by']}: "
-                  f"{nbytes} bytes, {ops} flops)")
+                  f"{nbytes} bytes, {ops} flops); max |err| vs plain "
+                  f"{max_err:.3e} on {int(vis.sum())} visible rows")
             del copies, lib_sets, k_d, v_d
     return rows
 
@@ -1060,14 +1076,18 @@ def layer0_attention(eng, prompts) -> dict:
     """Serve the first four requests (4 new tokens each) with every call of
     layer 0's fused attention also computed by the gather + ``_sdpa`` oracle
     over the same storage.  The gate is the first-order rounding bound of
-    softmax attention: the two paths' scores differ by at most ``ds = 2 *
-    Dh * 2^-24 * sm_scale * max_j sum_d |q_d k_jd|`` (fp32 dot products in
-    two orders), which moves an output channel by at most ``ds * sum_j p_j
-    |v_j - o| <= ds * 4 * (1 - p_max) * max|v|``; plus ``2e-5 * max(1,
-    max|v|)`` for the value sums.  A row whose softmax is one key (p_max =
-    1, common at a 1-bit model's large scores) must then agree to the
-    second term alone; near-tied rows get the slack their conditioning
-    needs.  Rows that see no key are not compared."""
+    softmax attention, per output channel: key j's score differs between
+    the two paths by at most ``ds_j = 2 (Dh + 1) 2^-24 sm_scale sum_d |q_d
+    k_jd|`` (an fp32 dot product and its scaling, in two orders), which
+    moves output channel d by at most ``sum_j p_j ds_j |v_jd - o_d|``.  That
+    is bounded by the smaller of ``sum_j p_j ds_j (|v_jd| + |o_d|)`` and
+    ``max_j ds_j * 4 (1 - p_max) max|v|`` (zero for a one-key softmax, the
+    common row of a 1-bit model's large scores), plus ``2e-5 * max(1,
+    max|v|)`` for the exponentials and value sums.  Rows that see no key are
+    not compared.  Reports, over the checked channels, the median and max of
+    the bound beside the median |output|, and on how many checked rows
+    dropping the row's most probable key would move the output past the
+    bound (what a kernel that loses a key would have to get past)."""
     import dataclasses
 
     from repro_torch.serve.engine import Request, Scheduler
@@ -1075,13 +1095,16 @@ def layer0_attention(eng, prompts) -> dict:
     if eng.cfg.attn.logit_softcap is not None:
         raise AssertionError("layer0_attention's bound assumes no softcap")
     n_layers, base = eng.cfg.n_layers, eng.kv
-    state = dict(calls=0, checked=0, rows=0, max_err=0.0, max_ratio=0.0)
+    state = dict(calls=0, checked=0, rows=0, max_err=0.0, max_ratio=0.0,
+                 drop_caught=0)
+    bounds, outs = [], []
 
     class Layer0Check(type(base)):
         def attend(self, cache, q, q_pos, cfg):
             out = super().attend(cache, q, q_pos, cfg)
             if state["calls"] % n_layers == 0:
-                check_attention(self, cache, q, q_pos, cfg, out, state)
+                check_attention(self, cache, q, q_pos, cfg, out, state,
+                                bounds, outs)
             state["calls"] += 1
             return out
 
@@ -1093,35 +1116,65 @@ def layer0_attention(eng, prompts) -> dict:
         sched.run()
     finally:
         eng.kv = base
+    bound, out = torch.cat(bounds), torch.cat(outs)
+    state.update(bound_median=float(bound.median()), bound_max=float(bound.max()),
+                 out_abs_median=float(out.median()))
     print(f"layer 0 fused vs gather oracle ({type(base).__name__}, kv_bits "
           f"{base.kv_bits}): {state['checked']} calls, {state['rows']} rows, "
           f"max |err| {state['max_err']:.3e}, max |err| / bound "
-          f"{state['max_ratio']:.4f}")
+          f"{state['max_ratio']:.4f}; bound median {state['bound_median']:.3e}"
+          f" max {state['bound_max']:.3e} against median |out| "
+          f"{state['out_abs_median']:.3e}; a dropped top key would exceed the "
+          f"bound on {state['drop_caught']} of {state['rows']} rows")
     return {k: v for k, v in state.items() if k != "calls"}
 
 
-def check_attention(kv, cache, q, q_pos, cfg, out, state) -> None:
+def check_attention(kv, cache, q, q_pos, cfg, out, state, bounds,
+                    outs) -> None:
     """One fused call against the gather oracle (see layer0_attention)."""
     from repro_torch.nn import attention
 
     k, v, kpos = kv.gather(cache)
     mask = attention._mask(cfg, q_pos, kpos)  # (B, C, L)
     want = attention._sdpa(cfg, q.float(), k, v, mask)  # (B, C, KVH, G, Dh)
-    qf = q.float()
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * cfg.scale
-    s = torch.where(mask[:, None, None], s, attention.NEG_INF)
-    p_max = torch.softmax(s, dim=-1).amax(-1)  # (B, KVH, G, C)
+    qf, kf, m5 = q.float(), k.float(), mask[:, None, None]
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) * cfg.scale
+    p = torch.softmax(torch.where(m5, s, attention.NEG_INF), dim=-1)
     del s
-    sabs = torch.einsum("bqhgd,bkhd->bhgqk", qf.abs(), k.float().abs())
-    sabs = torch.where(mask[:, None, None], sabs, 0.0).amax(-1) * cfg.scale
-    vmax = torch.where((kpos >= 0)[:, :, None, None], v.abs(), 0.0).amax(
-        dim=(1, 2, 3))  # (B,)
-    ds = 2 * cfg.d_head * 2.0 ** -24 * sabs
-    vm = vmax[:, None, None, None]
-    bound = ds * 4 * (1 - p_max) * vm + ATTN_TOL * vm.clamp(min=1.0)
-    bound = bound.permute(0, 3, 1, 2)[..., None]  # (B, C, KVH, G, 1)
+    p_max, top = p.max(-1)  # (B, KVH, G, C)
+    ds = torch.einsum("bqhgd,bkhd->bhgqk", qf.abs(), kf.abs()) * (
+        2 * (cfg.d_head + 1) * 2.0 ** -24 * cfg.scale)
+    pds = p * torch.where(m5, ds, 0.0)
+    ds_max = torch.where(m5, ds, 0.0).amax(-1)
+    del ds
+    vabs = torch.where((kpos >= 0)[:, :, None, None], v.abs(), 0.0)
+    vm = vabs.amax(dim=(1, 2, 3))[:, None, None, None, None]  # (B, 1, 1, 1, 1)
+
+    def rows_last(x):  # (B, KVH, G, C) -> (B, C, KVH, G, 1)
+        return x.permute(0, 3, 1, 2)[..., None]
+
+    spread = rows_last(ds_max * 4 * (1 - p_max)) * vm
+    per_key = (torch.einsum("bhgqk,bkhd->bqhgd", pds, vabs)
+               + rows_last(pds.sum(-1)) * want.abs())
+    del pds
+    bound = torch.minimum(spread, per_key) + ATTN_TOL * vm.clamp(min=1.0)
     vis = mask.any(-1)  # (B, C)
     err = (out - want).abs()
+    if vis.any():
+        # dropping the most probable key t moves the output by
+        # p_t (o - v_t) / (1 - p_t), or by -o when t is the only key
+        b, h, g, c = top.shape
+        v_top = torch.gather(v.float().permute(0, 2, 1, 3), 2,
+                             top.reshape(b, h, g * c, 1).expand(
+                                 -1, -1, -1, v.shape[-1]))
+        v_top = v_top.view(b, h, g, c, -1).permute(0, 3, 1, 2, 4)
+        pt = rows_last(p_max)
+        drop = torch.where(pt < 1, pt * (want - v_top) / (1 - pt).clamp(
+            min=1e-30), -want).abs()
+        caught = (drop > bound).flatten(2).any(-1)  # (B, C)
+        state["drop_caught"] += int(caught[vis].sum())
+        bounds.append(bound[vis].flatten())
+        outs.append(want.abs()[vis].flatten())
     ratio = float((err / bound)[vis].max()) if vis.any() else 0.0
     state["checked"] += 1
     state["rows"] += int(vis.sum())
@@ -1234,6 +1287,8 @@ def main() -> int:
     t0 = time.perf_counter()
     totals, rows = timing(dev, popc_per_s)
     attn_rows = timing_attn(dev)
+    err["flash_decode"] = max(err["flash_decode"],
+                              *(r["max_abs_err"] for r in attn_rows))
     decode = next(r for r in attn_rows if r["c"] == 1 and r["tier"] == "fp32")
     totals["flash_decode"] = {k: decode[k] for k in (
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}

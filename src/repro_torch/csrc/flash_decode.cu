@@ -14,9 +14,9 @@
 // at long prefill windows (C*G in the hundreds) the fp32 operations.
 // Design:
 // * A block owns (slot, kv-head, tile of 32 query rows) and walks the slot's
-//   table entries in order itself, in split steps of spb entries as the TPU
-//   grid does, in 32-key chunks; the running (m, l, acc) of each query row
-//   lives in registers.  Blocks share nothing (no split-KV combine).  The
+//   table entries in order itself, 32 keys at a time straight through the
+//   table (a chunk may span several blocks of the pool); the running
+//   (m, l, acc) of each query row lives in registers.  Blocks share nothing (no split-KV combine).  The
 //   query-row tile keeps any C (1 at decode, 256 per prefill chunk, the
 //   whole cache without chunking) within a fixed register and shared-memory
 //   budget.
@@ -68,7 +68,7 @@ struct Params {
   const float* v_scale;
   const int32_t* pool_pos;
   float* out;
-  int c, kvh, g, dh, bs, bps, groups, spb, causal, window;
+  int c, kvh, g, dh, bs, bps, groups, causal, window;
   float sm_scale, cap;
 };
 
@@ -153,25 +153,21 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(Params p) {
     for (int t = 0; t < DPL; ++t) acc[i][t] = 0.f;
   }
 
-  // Chunks run through split steps of spb entries; a chunk never crosses a
-  // step.  Lane `tid` of warp 0 owns key k0 + tid of each chunk: its pool
-  // row (-1 when unmapped) and, loaded one chunk ahead so that the load
-  // overlaps the current chunk's work, its position.
+  // Lane `tid` of warp 0 owns key k0 + tid of each chunk: its pool row (-1
+  // when unmapped) and, loaded one chunk ahead so that the load overlaps the
+  // current chunk's work, its position.
   const int total = p.bps * p.bs;
-  const int step = p.spb * p.bs;
-  auto chunk_end = [&](int k0) { return min((k0 / step + 1) * step, total); };
   auto key_row = [&](int k0) {
     const int key = k0 + tid, jj = key / p.bs;
-    if (tid >= kChunk || key >= chunk_end(k0)) return -1;
+    if (tid >= kChunk || key >= total) return -1;
     const int blk = table_s[jj];
     return blk < 0 ? -1 : blk * p.bs + (key - jj * p.bs);
   };
   int next_row = key_row(0);
   int next_pos = next_row >= 0 ? p.pool_pos[next_row] : -1;
-  for (int k0 = 0; k0 < total;) {
-    const int k1 = chunk_end(k0);
-    const int nk = min(kChunk, k1 - k0);
-    const int k_next = k0 + kChunk < k1 ? k0 + kChunk : k1;
+  for (int k0 = 0; k0 < total; k0 += kChunk) {
+    const int nk = min(kChunk, total - k0);
+    const int k_next = k0 + kChunk;
     int admitted = 0;
     if (tid < kChunk) {
       const int pos = next_pos;
@@ -187,7 +183,6 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(Params p) {
         next_pos = next_row >= 0 ? p.pool_pos[next_row] : -1;
       }
     }
-    k0 = k_next;
     if (!__syncthreads_or(admitted)) continue;
 
     // dequantize the chunk's admitted K/V rows into shared memory: the
@@ -310,15 +305,15 @@ extern "C" int repro_flash_decode(
     const void* pool_k, const void* pool_v, const float* k_scale,
     const float* v_scale, const int32_t* pool_pos, float* out, long long b,
     long long c, long long kvh, long long g, long long dh, long long nb,
-    long long bs, long long bps, int kind, int spb, float sm_scale, float cap,
+    long long bs, long long bps, int kind, float sm_scale, float cap,
     int causal, int window, cudaStream_t stream) {
   (void)nb;
-  if (dh < 1 || dh > 256 || (kind == kBit1 && dh % 8) || spb < 1)
+  if (dh < 1 || dh > 256 || (kind == kBit1 && dh % 8))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{table, q, q_pos, pool_k, pool_v, k_scale, v_scale, pool_pos, out,
            static_cast<int>(c), static_cast<int>(kvh), static_cast<int>(g),
            static_cast<int>(dh), static_cast<int>(bs), static_cast<int>(bps),
-           dh % 32 == 0 ? static_cast<int>(dh / 32) : 1, spb, causal, window,
+           dh % 32 == 0 ? static_cast<int>(dh / 32) : 1, causal, window,
            sm_scale, cap};
   const long long tiles = (c * g + kTileRows - 1) / kTileRows;
   const long long blocks = b * kvh * tiles;

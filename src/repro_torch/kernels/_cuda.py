@@ -47,9 +47,9 @@ _PROTOTYPES = {
     "repro_kbit_plane_gemm": 3 * [_PTRS] + 3 * [_DIMS] + 2 * [_INT],
     "repro_kbit_mxu_gemm": 3 * [_PTRS] + 3 * [_DIMS] + 2 * [_INT],
     # (table, q, q_pos, pool_k, pool_v, k_scale, v_scale, pool_pos, out,
-    #  b, c, kvh, g, dh, nb, bs, bps, kind, spb, sm_scale, cap, causal, window)
-    "repro_flash_decode": 9 * [_PTRS] + 8 * [_DIMS] + 2 * [_INT]
-                          + 2 * [_FLOAT] + 2 * [_INT],
+    #  b, c, kvh, g, dh, nb, bs, bps, kind, sm_scale, cap, causal, window)
+    "repro_flash_decode": 9 * [_PTRS] + 8 * [_DIMS] + [_INT] + 2 * [_FLOAT]
+                          + 2 * [_INT],
 }
 
 LAUNCHES: dict[str, int] = {name[len("repro_"):]: 0 for name in _PROTOTYPES}

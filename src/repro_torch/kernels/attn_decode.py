@@ -46,7 +46,7 @@ from repro_torch.kernels import _cuda
 NEG_INF = -2.0e38
 
 DEFAULT_CTG_TILE = 512  # contiguous tile (tokens per identity-table block)
-DEFAULT_PGD_SPB = 4  # paged table entries per split step
+DEFAULT_PGD_SPB = 4  # the JAX kernel's paged table entries per split step
 
 # storage tier -> the kernel's pool kind (fp pools by dtype)
 _KIND = {torch.float32: 0, torch.bfloat16: 1, 8: 2, 1: 3}
@@ -249,7 +249,7 @@ def _check(table, q, q_pos, pool_k, pool_v, pool_pos, k_scale, v_scale,
 
 
 def _launch(table, q, q_pos, pool_k, pool_v, pool_pos, k_scale, v_scale,
-            kind, spb, sm_scale, cap, causal, window) -> torch.Tensor:
+            kind, sm_scale, cap, causal, window) -> torch.Tensor:
     b, c, kvh, g, dh = q.shape
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     if out.numel() == 0:
@@ -263,7 +263,7 @@ def _launch(table, q, q_pos, pool_k, pool_v, pool_pos, k_scale, v_scale,
             0 if v_scale is None else v_scale.data_ptr(),
             pool_pos.data_ptr(), out.data_ptr(),
             b, c, kvh, g, dh, nb, bs, table.shape[1],
-            kind, spb, sm_scale, 0.0 if cap is None else cap, int(causal),
+            kind, sm_scale, 0.0 if cap is None else cap, int(causal),
             0 if window is None else window,
             _cuda.stream_handle(q.device))
     _cuda.check(rc, "flash_decode")
@@ -292,9 +292,10 @@ def flash_decode_paged(
     """Fused paged flash-decode attention: (B, C, KVH, G, Dh) fp32 out.
 
     Reads the paged pool through ``table`` — no dense gather.  The CUDA
-    kernel walks each slot's table in split steps of ``blocks_per_step``
-    entries (default ``min(DEFAULT_PGD_SPB, bps)``), as the TPU grid does;
-    the result does not depend on it beyond fp32 summation order."""
+    kernel walks each slot's table straight through in 32-key chunks.
+    ``blocks_per_step`` (default ``min(DEFAULT_PGD_SPB, bps)``) is the JAX
+    kernel's split knob: it is validated for API parity and does not reach
+    the kernel, whose grid has no split axis."""
     spb = blocks_per_step or min(DEFAULT_PGD_SPB, table.shape[1])
     kind = _check(table, q, q_pos, pool_k, pool_v, pool_pos, k_scale, v_scale,
                   block_size, kv_bits, window, spb)
@@ -306,7 +307,7 @@ def flash_decode_paged(
             kv_bits=kv_bits, sm_scale=sm_scale, logit_softcap=logit_softcap,
             causal=causal, window=window)
     return _launch(table, q, q_pos, pool_k, pool_v, pool_pos, k_scale,
-                   v_scale, kind, spb, sm_scale, logit_softcap, causal, window)
+                   v_scale, kind, sm_scale, logit_softcap, causal, window)
 
 
 def contig_tile(cache_len: int, kv_tile: int | None = None) -> int:
@@ -353,13 +354,13 @@ def flash_decode_contig(
 ) -> torch.Tensor:
     """Contiguous-slab variant: the slab viewed as an identity-table pool
     of ``kv_tile``-token blocks (:func:`contig_tile`), after which the SAME
-    paged kernel runs with one entry per split step."""
+    paged kernel runs."""
     table, pk, pv, pp, ks, vs, t = _contig_pool(k, v, slot_pos, k_scale,
                                                 v_scale, kv_tile)
     return flash_decode_paged(
         table, q, q_pos, pk, pv, pp, ks, vs, block_size=t, kv_bits=kv_bits,
         sm_scale=sm_scale, logit_softcap=logit_softcap, causal=causal,
-        window=window, blocks_per_step=1)
+        window=window)
 
 
 def flash_decode_contig_plain(q, q_pos, k, v, slot_pos, k_scale=None,
@@ -375,9 +376,10 @@ def flash_decode_contig_plain(q, q_pos, k, v, slot_pos, k_scale=None,
 def select_attn_tiles(b: int, c: int, cache_len: int, dh: int,
                       layout: str) -> int:
     """The split knob for a decode shape: ``layout`` "ctg" returns the
-    contiguous tile, "pgd" the paged table entries per split step.  The port
-    has no tuned-tile cache yet (the autotune is ROADMAP slice 7), so these
-    are the defaults."""
+    contiguous tile, "pgd" the JAX kernel's paged table entries per split
+    step (kept for API parity: the CUDA kernel has no split axis).  The
+    port has no tuned-tile cache yet (the autotune is ROADMAP slice 7), so
+    these are the defaults."""
     del b, c, cache_len, dh
     if layout not in ("ctg", "pgd"):
         raise ValueError(f"layout must be 'ctg' or 'pgd', got {layout!r}")

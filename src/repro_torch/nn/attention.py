@@ -442,18 +442,13 @@ class PagedKVCache(KVCache):
                 pos.reshape(b, bps * bs))
 
     def attend(self, cache: Params, q, q_pos, cfg: AttnConfig):
-        b, c = q_pos.shape
-        bps = cache["table"].shape[1]
-        spb = attn_kernels.select_attn_tiles(
-            b, c, bps * self.block_size, cfg.d_head, "pgd")
         return attn_kernels.flash_decode_paged(
             cache["table"], q.to(torch.float32).contiguous(),
             q_pos.to(torch.int32), cache["pool_k"], cache["pool_v"],
             cache["pool_pos"], cache.get("pool_ks"), cache.get("pool_vs"),
             block_size=self.block_size, kv_bits=self.kv_bits,
             sm_scale=cfg.scale, logit_softcap=cfg.logit_softcap,
-            causal=cfg.causal, window=cfg.window,
-            blocks_per_step=min(spb, bps))
+            causal=cfg.causal, window=cfg.window)
 
 
 CONTIGUOUS = ContiguousKVCache()

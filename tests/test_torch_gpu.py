@@ -262,13 +262,18 @@ def _paged_case(dev, tier, b, c, g, dh, bs=16, bps=7, kvh=2, seed=0):
 
 
 @pytest.mark.parametrize("tier", ["fp32", "bf16", 8, 1])
-@pytest.mark.parametrize("c,g,dh", [(1, 4, 64), (4, 1, 128), (37, 4, 64)])
+@pytest.mark.parametrize("c,g,dh,bs,bps", [
+    (1, 4, 64, 16, 7), (4, 1, 128, 16, 7), (37, 4, 64, 16, 7),
+    (4, 4, 64, 4, 13),  # each 32-key chunk spans 8 table entries
+])
 @pytest.mark.parametrize("cap,window", [(None, None), (30.0, 40)])
-def test_flash_decode_kernel_matches_plain(cuda, tier, c, g, dh, cap, window):
+def test_flash_decode_kernel_matches_plain(cuda, tier, c, g, dh, bs, bps, cap,
+                                           window):
     """K11 against its plain version on the card: rows that see a key
     within atol 2e-5 (unit-scale inputs; the bf16 pool too, whose values
     both sides read exactly in fp32), the unmapped slot exact zeros."""
-    inp, bs = _paged_case(cuda, tier, 3, c, g, dh, seed=c + dh)
+    inp, bs = _paged_case(cuda, tier, 3, c, g, dh, bs=bs, bps=bps,
+                          seed=c + dh)
     kv_bits = tier if isinstance(tier, int) else None
     opts = dict(block_size=bs, kv_bits=kv_bits, sm_scale=dh ** -0.5,
                 logit_softcap=cap, window=window)
