@@ -5,7 +5,9 @@ checkout, holds each against its plain PyTorch version, times them, and
 serves granite-3-2b at full width through the continuous-batching
 scheduler on those kernels: packed 1-bit and packed DoReFa w4a4 on the
 contiguous cache, and packed 1-bit on the paged cache with chunked prefill,
-shared prefixes and the flash-decode kernel at every KV tier.
+shared prefixes and the flash-decode kernel at every KV tier; then serves
+the MoE deepseek-moe-16b at full width, packed 1-bit, on the expert-batched
+kernels.
 
     python3 chip_smoke.py            # needs one CUDA GPU (sm_90a) and nvcc
 
@@ -21,7 +23,11 @@ Phases (any failure exits non-zero before the result line):
    and (8,4); flash-decode (K11) within 2e-5 on rows that see a key, over
    fp32 / bf16 / int8 / 1-bit pools, paged and contiguous, C 1/4/256, G 1/4,
    Dh 64/128, softcap and window on and off, ragged slots, a -1 table entry
-   and an unmapped slot (exact zeros);
+   and an unmapped slot (exact zeros); the expert-batched xnor-popcount
+   (K7) and int8-unpack (K8) GEMMs exactly at E 1/3/64, 1/24/77 bucket
+   rows, N 1408/2048/33 and Kw 44/64/1/5, and ``quant_gemm_grouped`` on
+   the card == on the CPU (one stack and up + gate, full and tight
+   capacity, the route-first prologue);
 3. timing: each kernel, its plain version and one PyTorch yardstick call
    (bf16 ``torch.matmul`` of the ±1 operands for K2/K3, of the dequantized
    DoReFa operands for K5/K6; ``scaled_dot_product_attention`` on the
@@ -31,7 +37,9 @@ Phases (any failure exits non-zero before the result line):
    for a GEMM, that of its function, the integer dot of the codes, on the
    int8 tensor cores, whichever kernel computes it; K2/K5's popcount
    ceiling is printed beside it; for K11 the admitted rows' bytes or its
-   fp32 operations);
+   fp32 operations); K7 / K8 at deepseek-moe-16b's expert GEMMs (64
+   experts; 24 bucket rows at decode, 576 at the mix's largest prefill)
+   beside a bf16 ``torch.bmm`` yardstick and their bound;
 4. serving: granite-3-2b at full width (d_model 2048, 32/8 heads, d_ff 8192,
    vocab 49155 padded to 49408), all 40 layers, params from a seeded
    ``torch.Generator`` on the card, each run with its kernel counts set to
@@ -59,6 +67,14 @@ Phases (any failure exits non-zero before the result line):
      seven packed ``qdense`` outputs must equal fake-quant within
      ``rtol=1e-4, atol=2e-4`` at w4a4 and at w8a8;
    and each kernel's launch count in its serving run must be > 0;
+   - the MoE cell: deepseek-moe-16b at full width (64 routed experts of
+     1408, top-6, 2 shared, layer 0 dense), 1-bit, the same request mix:
+     all 28 layers packed ``vpu`` and ``mxu`` (the model built layer by
+     layer, never whole in fp32), whose streams must be identical; at
+     depth 4, packed ``vpu``, ``mxu``, fake-quant and ``vpu`` again, all
+     identical (one slot at a time reported beside them); K7 / K8 must
+     launch 3 x MoE layers x (decode steps + prefills) times on the
+     ``vpu`` / ``mxu`` runs and never elsewhere;
 5. the ``kernels`` JSON line, then the result line.
 
 Per-shape timings, the serving runs and the decode profiles also go to
@@ -115,8 +131,13 @@ KERNELS = {
                       "src/repro/kernels/kbit_mxu.py:205"),
     "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
                      "src/repro/kernels/attn_decode.py:259"),
+    "xnor_mismatch_batched": ("src/repro_torch/csrc/xnor_mismatch.cu",
+                              "src/repro/kernels/xnor_gemm.py:250"),
+    "xnor_dot_mxu_batched": ("src/repro_torch/csrc/xnor_dot_mxu.cu",
+                             "src/repro/kernels/xnor_gemm.py:267"),
 }
 ONE_BIT = ("pack_sign", "xnor_mismatch", "xnor_dot_mxu")
+MOE_KERNELS = ("xnor_mismatch_batched", "xnor_dot_mxu_batched")  # K7, K8
 K_BIT = ("quant_pack_planes", "kbit_plane_gemm", "kbit_mxu_gemm")
 
 FP32_FLOPS_PER_S = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
@@ -130,6 +151,13 @@ PREFIX_LEN = 512
 TAIL_LENS = (64, 448)  # unique tail per request, uniform from the seed
 PAGED_REQUESTS = 8
 PAGED_NEW_TOKENS = 32
+# the MoE cell: deepseek-moe-16b's expert GEMMs, (name, N, K) per expert
+MOE_ARCH = "deepseek-moe-16b"
+MOE_GEMMS = (("up", 1408, 2048), ("gate", 1408, 2048), ("down", 2048, 1408))
+MOE_EXPERTS, MOE_TOP_K = 64, 6
+MOE_DECODE_EC = DECODE_M * MOE_TOP_K  # 24 bucket rows: capacity T*k at decode
+MOE_PREFILL_EC = 2 * 48 * MOE_TOP_K  # the mix's 96-token prefill run x top-6
+MOE_CUT_DEPTH = 4  # the dense layer 0 + 3 MoE layers, for the fake-quant oracle
 
 
 def nvidia_smi(query: str) -> str:
@@ -257,6 +285,99 @@ def parity_kbit(dev) -> dict[str, float]:
     print(f"parity: K4 at {n_k4} (M, K, a_bits) cases, K5/K6 at "
           f"{len(cases)} shapes x {len(PLANE_PAIRS)} plane pairs: equal to "
           f"their plain versions and K5 == K6, exactly (int32)")
+    return err
+
+
+def expert_words(shape, k_true: int, gen, dev) -> torch.Tensor:
+    """Random int32 words of shape (..., Kw) with the bits past ``k_true``
+    zeroed, as packing leaves them."""
+    w = torch.randint(-2**31, 2**31, shape, generator=gen, device=dev,
+                      dtype=torch.int64)
+    bit = torch.arange(shape[-1] * 32, device=dev).view(shape[-1], 32)
+    mask = ((bit < k_true).long() << torch.arange(32, device=dev)).sum(-1)
+    return (w & mask).to(torch.int32)
+
+
+def routed_group_sizes(t: int, gen, dev) -> torch.Tensor:
+    """Group sizes of ``t`` tokens' top-6 routing over 64 experts from
+    random router probabilities (empty experts included)."""
+    probs = torch.rand((t, MOE_EXPERTS), generator=gen, device=dev)
+    idx = probs.topk(MOE_TOP_K, dim=-1).indices.reshape(-1)
+    return torch.bincount(idx, minlength=MOE_EXPERTS)
+
+
+def parity_moe(dev) -> dict[str, float]:
+    """K7 / K8 against their plain versions, bit for bit, at E in {1, 3,
+    64}, bucket rows in {1, 24, 77}, N in {1408, 2048, 33}, Kw in {44, 64,
+    1, 5} (random words, tail bits zeroed); then ``quant_gemm_grouped`` on
+    the card against the same call on the CPU for ``vpu`` and ``mxu``, one
+    stack and the up + gate tuple, full and tight capacity: at the decode
+    shapes of deepseek-moe-16b (24 rows routed top-6 over 64 experts, up /
+    gate K 2048 and down K 1408), and at a small ragged shape whose tight
+    capacity takes the route-first prologue."""
+    from repro_torch.core import bitpack
+    from repro_torch.kernels import dispatch, xnor_gemm
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    err = {name: 0.0 for name in MOE_KERNELS}
+    n_cases = 0
+    for e in (1, 3, MOE_EXPERTS):
+        for ec in (1, MOE_DECODE_EC, 77):
+            for n in (1408, 2048, 33):
+                for kw in (44, 64, 1, 5):
+                    k_true = kw * 32 - int(torch.randint(
+                        0, 32, (1,), generator=gen, device=dev))
+                    a = expert_words((e, ec, kw), k_true, gen, dev)
+                    b = expert_words((e, n, kw), k_true, gen, dev)
+                    pairs = {
+                        "xnor_mismatch_batched": [(
+                            xnor_gemm.xnor_mismatch_batched(a, b),
+                            xnor_gemm.xnor_mismatch_batched_plain(a, b))],
+                        "xnor_dot_mxu_batched": [(
+                            xnor_gemm.xnor_dot_mxu_batched(a, b),
+                            xnor_gemm.xnor_dot_mxu_batched_plain(a, b))]}
+                    torch.cuda.synchronize()
+                    check_exact(pairs, err, f"E={e} ec={ec} N={n} Kw={kw}")
+                    n_cases += 1
+    grouped = [  # (label, T, K, N, group sizes, capacities)
+        ("decode up/gate", MOE_DECODE_EC, 2048, 1408,
+         routed_group_sizes(DECODE_M, gen, dev), (None, 3)),
+        ("decode down", MOE_DECODE_EC, 1408, 2048,
+         routed_group_sizes(DECODE_M, gen, dev), (None, 3)),
+        ("ragged", 48, 300, 70,
+         torch.tensor([9, 0, 13, 1, 0, 11, 6, 4], device=dev), (None, 6, 2)),
+    ]
+    n_grouped = 0
+    for label, t, k, n, gs, caps in grouped:
+        e = gs.numel()
+        x = edge_floats((t, k), gen, dev)
+        ws = tuple(bitpack.pack_sign(edge_floats((e, n, k), gen, dev))
+                   for _ in range(2))
+        for backend in ("vpu", "mxu"):
+            cfg = dispatch.GemmConfig(backend=backend)
+            for stacks in (ws[0], ws):
+                for cap in caps:
+                    got = dispatch.quant_gemm_grouped(
+                        x, stacks, gs, k_true=k, config=cfg,
+                        expert_capacity=cap)
+                    cpu = (tuple(w.cpu() for w in stacks)
+                           if isinstance(stacks, tuple) else stacks.cpu())
+                    want = dispatch.quant_gemm_grouped(
+                        x.cpu(), cpu, gs.cpu(), k_true=k, config=cfg,
+                        expert_capacity=cap)
+                    got = got if isinstance(got, tuple) else (got,)
+                    want = want if isinstance(want, tuple) else (want,)
+                    for g_, w_ in zip(got, want):
+                        if not torch.equal(g_.cpu(), w_):
+                            raise AssertionError(
+                                f"quant_gemm_grouped {backend} {label} "
+                                f"capacity {cap}: card != CPU")
+                    n_grouped += 1
+    print(f"parity: K7/K8 at {n_cases} (E, rows, N, Kw) cases equal their "
+          f"plain versions exactly (int32); quant_gemm_grouped on the card "
+          f"== on the CPU in {n_grouped} calls (vpu/mxu x one stack/up+gate "
+          f"x full/tight capacity; deepseek-moe-16b decode shapes and a "
+          f"route-first case)")
     return err
 
 
@@ -545,7 +666,7 @@ def decode_layer_totals(rows: list) -> dict:
     """The JSON line's numbers: one decode step of one layer (the 7 GEMMs'
     calls at M = batch), summed per kernel; K4-K6 at w4a4."""
     totals = {}
-    for kname in KERNELS:
+    for kname in ONE_BIT + K_BIT:
         rs = [r[kname] for r in rows
               if r["m"] == DECODE_M and r["bits"] in (1, 4) and kname in r]
         t_bytes = sum(r["bytes"] for r in rs) / HBM_BYTES_PER_S
@@ -680,25 +801,99 @@ def timing_attn(dev) -> list:
     return rows
 
 
+def timing_moe(dev, popc_per_s: float) -> tuple[dict, list]:
+    """K7 and K8 at deepseek-moe-16b's expert GEMMs (64 experts; up / gate
+    N 1408 K 2048, down N 2048 K 1408), at decode (24 bucket rows: 4 tokens
+    x top-6, the single-device capacity T*k) and at the mix's largest
+    prefill run (576 rows: 96 tokens x top-6): kernel, plain version, the
+    bf16 ``torch.bmm`` yardstick on the same (E, rows, K) x (E, K, N) ±1
+    operands, and the bound — the larger of the bytes (expert words, bucket
+    words, int32 output) at the HBM rate and ``2*E*rows*N*K`` int8
+    operations at the tensor cores' peak; K7's popcount ceiling is printed
+    beside it.  Weight stacks cycle through enough copies to overflow the
+    L2 cache, as 27 MoE layers read their experts cold.  Returns (one
+    decode step of one MoE layer per kernel: up + gate + down, rows)."""
+    from repro_torch.core import bitpack
+    from repro_torch.kernels import xnor_gemm
+
+    fns = {"xnor_mismatch_batched": (xnor_gemm.xnor_mismatch_batched,
+                                     xnor_gemm.xnor_mismatch_batched_plain),
+           "xnor_dot_mxu_batched": (xnor_gemm.xnor_dot_mxu_batched,
+                                    xnor_gemm.xnor_dot_mxu_batched_plain)}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    e, rows = MOE_EXPERTS, []
+    for ec in (MOE_DECODE_EC, MOE_PREFILL_EC):
+        plain_iters, plain_reps = (2, 3) if ec == MOE_DECODE_EC else (1, 1)
+        for name, n, k in MOE_GEMMS[1:]:  # up has gate's shape: timed once
+            kw = (k + 31) // 32
+            a = bitpack.pack_sign(torch.randn((e, ec, k), generator=gen,
+                                              device=dev))
+            w0 = bitpack.pack_sign(torch.randn((e, n, k), generator=gen,
+                                               device=dev))
+            nw = copies_for(e * n * kw * 4, 64)
+            ws = [w0] + [w0.clone() for _ in range(nw - 1)]
+            xb = bitpack.unpack_sign(a, k, torch.bfloat16)  # (E, ec, K)
+            wb = bitpack.unpack_sign(w0, k, torch.bfloat16).transpose(1, 2)
+            nl = copies_for(e * n * k * 2, 8)
+            wbs = [wb.contiguous()] + [wb.contiguous() for _ in range(nl - 1)]
+            del wb
+            lib_ms = graph_ms(torch.bmm, [(xb, w) for w in wbs], 2 * nl)
+            del wbs
+            row = {"bits": 1, "m": ec, "layer": "up/gate" if name == "gate"
+                   else name, "e": e, "n": n, "k": k, "copies": nw}
+            for kname, (kernel, plain) in fns.items():
+                row[kname] = dict(
+                    ms=graph_ms(kernel, [(a, w) for w in ws], 4 * nw),
+                    plain_ms=graph_ms(plain, [(a, w0)], plain_iters,
+                                      reps=plain_reps),
+                    library_ms=lib_ms,
+                    bytes=(e * n * kw + e * ec * kw + e * ec * n) * 4,
+                    ops_s=2 * e * ec * n * k / INT8_OPS_PER_S)
+            row["xnor_mismatch_batched"]["popc_bound_ms"] = (
+                e * ec * n * kw / popc_per_s * 1e3)
+            finish_row(row, MOE_KERNELS, f"timing MoE E={e} rows={ec} "
+                       f"{row['layer']} N={n} K={k}")
+            rows.append(row)
+            del ws, a, xb
+    totals = {}
+    for kname in MOE_KERNELS:
+        # one decode step of one MoE layer: up + gate (one row, twice) + down
+        rs = [(2 if r["layer"] == "up/gate" else 1, r[kname]) for r in rows
+              if r["m"] == MOE_DECODE_EC]
+        t_bytes = sum(c * r["bytes"] for c, r in rs) / HBM_BYTES_PER_S
+        t_ops = sum(c * r["ops_s"] for c, r in rs)
+        totals[kname] = dict(
+            ms=sum(c * r["ms"] for c, r in rs),
+            plain_ms=sum(c * r["plain_ms"] for c, r in rs),
+            bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=sum(c * r["library_ms"] for c, r in rs))
+    return totals, rows
+
+
 # --------------------------------------------------------------------------
 # phase 4: serving
 # --------------------------------------------------------------------------
 
 
-def serve_mix(spec, cfg, policy, runs_spec, prompts, tag: str):
-    """Serve ``prompts`` once per (label, params, backend) in ``runs_spec``
-    under ``policy``; the kernel counts are set to 0 just before each run
-    and read just after.  Returns (runs, launches) keyed by label."""
+def serve_mix(spec, cfg, policy, runs_spec, prompts, tag: str,
+              ref_label: str = "fake-quant", profile=True):
+    """Serve ``prompts`` once per (label, params, backend[, batch]) in
+    ``runs_spec`` under ``policy`` (batch: slots, default 4); the kernel
+    counts and the peak-memory counter are set to 0 just before each run
+    and read just after.  ``profile``: True, or the labels whose decode
+    step is profiled.  Checks the ``ref_label`` run's streams.  Returns
+    (runs, launches) keyed by label."""
     from repro_torch.kernels import _cuda
     from repro_torch.kernels.dispatch import GemmConfig
     from repro_torch.nn.common import QCtx
     from repro_torch.serve.engine import (Engine, EngineConfig, Request,
                                           Scheduler)
 
-    ecfg = EngineConfig(batch=DECODE_M, cache_len=CACHE_LEN,
-                        max_new_tokens=NEW_TOKENS)
     runs, launches = {}, {}
-    for label, p, backend in runs_spec:
+    for label, p, backend, *batch in runs_spec:
+        ecfg = EngineConfig(batch=batch[0] if batch else DECODE_M,
+                            cache_len=CACHE_LEN, max_new_tokens=NEW_TOKENS)
         ctx = QCtx(policy=policy, compute_dtype=torch.float32,
                    gemm_config=GemmConfig(backend=backend))
         eng = Engine(spec, cfg, ctx, p, ecfg)
@@ -706,25 +901,30 @@ def serve_mix(spec, cfg, policy, runs_spec, prompts, tag: str):
         for pr in prompts:
             sched.submit(Request(prompt=pr))
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         _cuda.reset_launches()
         t0 = time.perf_counter()
         results = sched.run()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches[label] = dict(_cuda.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 1e9
         n_tok = sum(len(v) for v in results.values())
         tpot = statistics.median(sched.stats.tpots()) * 1e3
         runs[label] = dict(results=results, seconds=dt, tokens=n_tok,
                            tok_s=n_tok / dt, decode_ms_step=tpot,
                            steps=sched.stats.steps,
-                           prefills=sched.stats.prefills)
+                           prefills=sched.stats.prefills,
+                           batch=ecfg.batch, peak_memory_gb=peak)
         print(f"serving {tag}{label}: {n_tok} tokens in {dt:.4f}s = "
               f"{n_tok / dt:.3f} tok/s; decode {tpot:.4f} ms/step (median "
               f"inter-token gap); {sched.stats.steps} decode steps, "
-              f"{sched.stats.prefills} prefills; launches "
+              f"{sched.stats.prefills} prefills, {ecfg.batch} slots; peak "
+              f"memory {peak:.3f} GB; launches "
               f"{ {k: v for k, v in launches[label].items() if v} }")
-        runs[label]["decode_profile"] = profile_decode(eng, tag + label)
-    ref = runs["fake-quant"]["results"]
+        if profile is True or label in profile:
+            runs[label]["decode_profile"] = profile_decode(eng, tag + label)
+    ref = runs[ref_label]["results"]
     if sorted(ref) != list(range(len(prompts))):
         raise AssertionError(f"{tag}missing requests: {sorted(ref)}")
     for rid, toks in ref.items():
@@ -732,6 +932,175 @@ def serve_mix(spec, cfg, policy, runs_spec, prompts, tag: str):
                                            & (toks < cfg.vocab_size)).all():
             raise AssertionError(f"{tag}rid {rid}: bad stream {toks}")
     return runs, launches
+
+
+def moe_packed_model(cfg, dev, policy):
+    """deepseek-moe-16b's params in the draw order of ``lm.init`` (embed,
+    then layer by layer, then the head) from a seeded generator on the
+    card, each layer initialised in fp32, converted and freed before the
+    next: the fp32 model (16.4 B parameters, 65.5 GB) never exists whole.
+    Returns (packed params, fp32 bytes, bytes after packing)."""
+    from repro_torch.core import converter
+    from repro_torch.core.qlayers import dense_init
+    from repro_torch.models import lm
+    from repro_torch.nn.common import embed_init, norm_init
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    p = {"embed": embed_init(gen, cfg.padded_vocab, cfg.d_model),
+         "layers": []}
+    fp32 = after = 0
+    for i in range(cfg.n_layers):
+        blk, rep = converter.convert({"layers": {str(i): lm._block_init(
+            gen, i, cfg)}}, policy)
+        p["layers"].append(blk["layers"][str(i)])
+        fp32, after = fp32 + rep.bytes_fp32, after + rep.bytes_after
+    p["final_norm"] = norm_init(cfg.norm, cfg.d_model, device=dev)
+    p["lm_head"] = dense_init(gen, cfg.d_model, cfg.padded_vocab)
+    rest = 4 * sum(t.numel() for t in (p["embed"]["table"],
+                                       p["final_norm"]["scale"],
+                                       p["lm_head"]["w"]))
+    return p, fp32 + rest, after + rest
+
+
+def serving_moe(dev) -> tuple[dict, dict]:
+    """The MoE cell: deepseek-moe-16b at full width (d_model 2048, 16 heads
+    of 128, vocab 102400; layer 0 a dense FFN of 10944; 64 routed experts
+    of 1408, top-6, and 2 shared experts per MoE layer), 1-bit
+    (``QuantPolicy.binary()``), float32 compute, the granite cells'
+    request mix on 4 slots of a 256-row contiguous cache, gather
+    attention.  Runs, each with its kernel counts set to 0 just before it:
+
+    - all 28 layers, packed ``vpu`` and ``mxu`` (built layer by layer,
+      ``moe_packed_model``): their greedy streams must be identical (the
+      same integer dots);
+    - depth 4 (layer 0 + 3 MoE layers, full width): packed ``vpu``, packed
+      ``mxu``, fake-quant and packed ``vpu`` again; all four streams must
+      be identical (§2.2.2, and a repeat run repeats: stable sort,
+      fixed-order combine); packed ``vpu`` one slot at a time is reported
+      beside them.
+
+    Launch gates: K7 == 3 x MoE layers x (decode steps + prefill calls) on
+    the ``vpu`` runs and 0 on the others, K8 likewise on ``mxu``, K1 on
+    every packed run, nothing on fake-quant.  Returns (K7 / K8 / K1
+    launches of the full-depth runs, summary)."""
+    import dataclasses
+
+    from repro_torch.core import converter
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.kernels.dispatch import GemmConfig
+    from repro_torch.launch.serve import stream_agreement
+    from repro_torch.models import lm, registry
+    from repro_torch.nn.common import QCtx
+
+    spec = registry.get(MOE_ARCH)
+    cfg = spec.config
+    widths = (cfg.d_model, cfg.attn.n_heads, cfg.attn.n_kv_heads,
+              cfg.attn.d_head, cfg.vocab_size, cfg.first_dense_mlp.d_ff,
+              cfg.moe.e, cfg.moe.d_expert, cfg.moe.top_k, cfg.moe.n_shared,
+              cfg.moe.router_scale_norm, cfg.n_layers)
+    if widths != (2048, 16, 16, 128, 102400, 10944, 64, 1408, 6, 2, False,
+                  28):
+        raise AssertionError(f"deepseek-moe-16b widths changed: {widths}")
+    binary = QuantPolicy.binary()
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in PROMPT_LENS]
+
+    def gate_launches(runs, launches, tag, n_layers):
+        n_moe = n_layers - cfg.first_dense_layers
+        for label, ls in launches.items():
+            be = "xla" if label.startswith("fake") else label.split("-")[1]
+            calls = 3 * n_moe * (runs[label]["steps"] + runs[label]["prefills"])
+            want = {"xnor_mismatch_batched": calls if be == "vpu" else 0,
+                    "xnor_dot_mxu_batched": calls if be == "mxu" else 0}
+            got = {k: ls[k] for k in want}
+            packed = label.startswith("packed")
+            if (got != want or (ls["pack_sign"] > 0) != packed
+                    or (not packed and any(ls.values()))):
+                raise AssertionError(f"MoE {tag}{label}: launches {ls}, "
+                                     f"expected {want}")
+
+    def same(runs, a, b):
+        return all(np.array_equal(runs[a]["results"][r],
+                                  runs[b]["results"][r])
+                   for r in runs[b]["results"])
+
+    # full depth, packed only
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    packed, fp32_bytes, packed_bytes = moe_packed_model(cfg, dev, binary)
+    torch.cuda.synchronize()
+    build_peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"serving MoE: {MOE_ARCH} full width, all {cfg.n_layers} layers, "
+          f"built layer by layer in {time.perf_counter() - t0:.3f}s: fp32 "
+          f"{fp32_bytes / 1e9:.3f} GB -> 1-bit packed {packed_bytes / 1e9:.3f}"
+          f" GB; peak memory while building {build_peak:.3f} GB")
+    ctx = QCtx(policy=binary, compute_dtype=torch.float32,
+               gemm_config=GemmConfig(backend="vpu"))
+    with torch.inference_mode():
+        logits, _ = lm.prefill(packed, cfg, ctx, prefill_tokens(prompts, dev),
+                               CACHE_LEN)
+    if logits.shape != (1, 1, cfg.padded_vocab) or not torch.isfinite(
+            logits).all():
+        raise AssertionError(f"MoE: bad prefill logits {tuple(logits.shape)}")
+    runs, launches = serve_mix(
+        spec, cfg, binary, (("packed-vpu", packed, "vpu"),
+                            ("packed-mxu", packed, "mxu")), prompts, "MoE ",
+        ref_label="packed-vpu", profile=("packed-vpu",))
+    gate_launches(runs, launches, "", cfg.n_layers)
+    if not same(runs, "packed-mxu", "packed-vpu"):
+        raise AssertionError("MoE full depth: packed-vpu and packed-mxu "
+                             "greedy streams differ")
+    print(f"serving MoE: {cfg.n_layers} layers, packed-vpu and packed-mxu "
+          f"greedy streams identical; K7 {launches['packed-vpu']['xnor_mismatch_batched']}"
+          f" and K8 {launches['packed-mxu']['xnor_dot_mxu_batched']} launches "
+          f"= 3 x {cfg.n_layers - 1} MoE layers x (decode steps + prefills)")
+    del packed, logits
+    torch.cuda.empty_cache()
+
+    # depth 4: the fake-quant oracle at full width
+    cfg4 = dataclasses.replace(cfg, n_layers=MOE_CUT_DEPTH)
+    params = lm.init(torch.Generator(device=dev).manual_seed(SEED), cfg4)
+    packed4, report = converter.convert(params, binary)
+    print(f"serving MoE depth {MOE_CUT_DEPTH}: {report.summary()}")
+    runs4, launches4 = serve_mix(
+        spec, cfg4, binary, (("packed-vpu", packed4, "vpu"),
+                             ("packed-mxu", packed4, "mxu"),
+                             ("fake-quant", params, "vpu"),
+                             ("packed-vpu-again", packed4, "vpu"),
+                             ("packed-vpu-1-slot", packed4, "vpu", 1)),
+        prompts, f"MoE depth {MOE_CUT_DEPTH} ", profile=())
+    gate_launches(runs4, launches4, f"depth {MOE_CUT_DEPTH} ", MOE_CUT_DEPTH)
+    for label in ("packed-vpu", "packed-mxu", "packed-vpu-again"):
+        if not same(runs4, label, "fake-quant"):
+            raise AssertionError(f"§2.2.2 violated (MoE depth "
+                                 f"{MOE_CUT_DEPTH}): {label} != fake-quant")
+    agree, total, first = stream_agreement(
+        runs4["packed-vpu-1-slot"]["results"], runs4["packed-vpu"]["results"])
+    per_request = dict(tokens_agree=agree, tokens=total,
+                       first_difference=first)
+    print(f"serving MoE depth {MOE_CUT_DEPTH}: greedy streams identical for "
+          f"packed-vpu, packed-mxu, fake-quant and a repeated packed-vpu run "
+          f"(§2.2.2; deterministic routing and combine); one slot at a time "
+          f"vs 4 slots (reported, not gated): {per_request}")
+    del params, packed4
+    torch.cuda.empty_cache()
+    main_launches = {
+        "xnor_mismatch_batched": launches["packed-vpu"]["xnor_mismatch_batched"],
+        "xnor_dot_mxu_batched": launches["packed-mxu"]["xnor_dot_mxu_batched"]}
+    summary = {f"{tag}{k}": {kk: vv for kk, vv in v.items()
+                             if kk != "results"}
+               for tag, rs in (("full depth ", runs),
+                               (f"depth {MOE_CUT_DEPTH} ", runs4))
+               for k, v in rs.items()}
+    summary.update(model_fp32_gb=fp32_bytes / 1e9,
+                   model_packed_gb=packed_bytes / 1e9,
+                   build_peak_memory_gb=build_peak,
+                   per_request_vs_batched=per_request,
+                   launches={"full depth": launches,
+                             f"depth {MOE_CUT_DEPTH}": launches4})
+    return main_launches, summary
 
 
 def serving(dev) -> tuple[dict, dict]:
@@ -1283,9 +1652,12 @@ def main() -> int:
     err = parity(dev)
     err.update(parity_kbit(dev))
     err["flash_decode"] = parity_attn(dev)
+    err.update(parity_moe(dev))
     print(f"parity phase {time.perf_counter() - t0:.3f}s")
     t0 = time.perf_counter()
     totals, rows = timing(dev, popc_per_s)
+    moe_totals, moe_rows = timing_moe(dev, popc_per_s)
+    totals.update(moe_totals)
     attn_rows = timing_attn(dev)
     err["flash_decode"] = max(err["flash_decode"],
                               *(r["max_abs_err"] for r in attn_rows))
@@ -1296,6 +1668,11 @@ def main() -> int:
     t0 = time.perf_counter()
     launches, serve_summary = serving(dev)
     print(f"serving phase {time.perf_counter() - t0:.3f}s")
+    t0 = time.perf_counter()
+    moe_launches, moe_summary = serving_moe(dev)
+    launches.update(moe_launches)
+    serve_summary["MoE cell"] = moe_summary
+    print(f"MoE serving phase {time.perf_counter() - t0:.3f}s")
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -1310,8 +1687,9 @@ def main() -> int:
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps({
         "device": nvidia_smi("name,power.limit"), "timing_rows": rows,
-        "attention_timing_rows": attn_rows,
-        "kernel_totals_decode_layer (K4-K6 at w4a4, K11 fp32 pool)": totals,
+        "moe_timing_rows": moe_rows, "attention_timing_rows": attn_rows,
+        "kernel_totals_decode_layer (K4-K6 at w4a4, K11 fp32 pool, K7/K8 "
+        "one MoE layer)": totals,
         "serving": serve_summary,
         "launches": launches}, indent=1))
     print(json.dumps({"kernels": kernels}))

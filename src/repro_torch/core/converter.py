@@ -12,7 +12,10 @@ alpha) rides along.  Everything else (embedding, norms, biases) is left
 untouched.  ``convert`` returns the new tree and a :class:`SizeReport` with
 the paper's accounting (k/32 of the fp32 bytes at k bits).
 
-Expert stacks and conv weights wait for slices 4 and 5.
+MoE expert stacks (a dict of ``up`` / ``gate`` / ``down`` tensors of shape
+``(E, d_in, d_out)``) pack per expert along ``d_in`` into ``{name}_packed``
+``(E, d_out, Kw)`` sign words at 1 bit; their k-bit plane stacks come with
+slice 4b, and conv weights with slice 5.
 """
 
 from __future__ import annotations
@@ -110,9 +113,33 @@ def convert(params: Pytree, policy: QuantPolicy, *,
                     f"{path}: packing {w.ndim}-d weights (conv) comes with a "
                     "later slice of the port")
             return _pack_layer(node, path, spec, report, keep_float)
+        up = node.get("up")
+        if (isinstance(up, torch.Tensor) and up.ndim == 3 and spec is not None
+                and _packable(spec)):
+            return _pack_experts(node, path, spec, report, keep_float)
         return {k: rec(v, f"{path}/{k}" if path else k) for k, v in node.items()}
 
     return rec(params, ""), report
+
+
+def _pack_experts(node, path, spec: QuantSpec, report: SizeReport,
+                  keep_float: bool):
+    """MoE expert stack: each ``(E, d_in, d_out)`` tensor -> ``(E, d_out,
+    Kw)`` sign words, packed per expert along the contraction axis."""
+    if not spec.is_binary:
+        raise NotImplementedError(
+            f"{path}: k-bit expert plane stacks (w{spec.w_bits}a{spec.a_bits})"
+            " come with slice 4b of the port")
+    out = {}
+    for name, w in node.items():  # up / gate / down
+        w_packed = bitpack.pack_sign(w.to(torch.float32).transpose(1, 2))
+        out[name + "_packed"] = w_packed
+        if keep_float:
+            out[name] = w
+        report.leaves.append(LeafReport(f"{path}/{name}", tuple(w.shape),
+                                        _fp32_bytes(w), w_packed.numel() * 4,
+                                        True))
+    return out
 
 
 def _pack_layer(node, path, spec: QuantSpec, report: SizeReport,

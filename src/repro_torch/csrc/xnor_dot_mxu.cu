@@ -5,8 +5,13 @@
 // dot by Kw*32 - k_true, which dispatch subtracts
 // (xnor_gemm.mxu_pad_inflation with the Kw passed here).
 //
+// The expert-batched form runs the same tile over a leading expert axis:
+// (E, M, Kw) x (E, N, Kw) -> (E, M, N), one expert per blockIdx.z.
+//
 // Replaces: src/repro/kernels/xnor_gemm.py, xnor_dot_mxu_pallas
-// (_mxu_kernel, _unpack_pm1_i8), the "mxu" backend.
+// (_mxu_kernel, _unpack_pm1_i8), the "mxu" backend (repro_xnor_dot_mxu);
+// and xnor_dot_mxu_batched_pallas (_mxu_kernel_batched), the MoE expert
+// buckets of the "mxu" backend (repro_xnor_dot_mxu_batched).
 //
 // Bound on the H100: at decode (M = batch <= 8) bytes — the packed weights
 // are read once; at prefill M the int8 tensor cores (2*M*N*K ops).
@@ -20,6 +25,9 @@
 // are never read: their shared-memory lanes are written as 0 (not -1), so
 // the kernel contracts exactly Kw words whatever the tile size.  Rows are
 // padded by 16 bytes so the fragment loads of a warp hit 32 distinct banks.
+// The batched kernel offsets the operands and the output by its expert's
+// strides; its pad inflation is that of the Kw it is given, as for the 2-D
+// form.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -54,10 +62,12 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__global__ void __launch_bounds__(kThreads)
-xnor_dot_mxu_kernel(const uint32_t* __restrict__ a,
-                    const uint32_t* __restrict__ b, int32_t* __restrict__ out,
-                    long long m, long long n, long long kw) {
+// One 16 x 64 output tile of one (M, Kw) x (N, Kw) product.
+__device__ __forceinline__ void mxu_tile(const uint32_t* __restrict__ a,
+                                         const uint32_t* __restrict__ b,
+                                         int32_t* __restrict__ out,
+                                         long long m, long long n,
+                                         long long kw) {
   __shared__ __align__(16) int8_t sa[kBM][kLds];
   __shared__ __align__(16) int8_t sb[kBN][kLds];
   const int tid = threadIdx.x;
@@ -118,6 +128,23 @@ xnor_dot_mxu_kernel(const uint32_t* __restrict__ a,
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+xnor_dot_mxu_kernel(const uint32_t* __restrict__ a,
+                    const uint32_t* __restrict__ b, int32_t* __restrict__ out,
+                    long long m, long long n, long long kw) {
+  mxu_tile(a, b, out, m, n, kw);
+}
+
+// blockIdx.z = expert: its (M, Kw), (N, Kw) and (M, N) slabs.
+__global__ void __launch_bounds__(kThreads)
+xnor_dot_mxu_batched_kernel(const uint32_t* __restrict__ a,
+                            const uint32_t* __restrict__ b,
+                            int32_t* __restrict__ out, long long m,
+                            long long n, long long kw) {
+  const long long e = blockIdx.z;
+  mxu_tile(a + e * m * kw, b + e * n * kw, out + e * m * n, m, n, kw);
+}
+
 }  // namespace
 
 extern "C" int repro_xnor_dot_mxu(const int32_t* a, const int32_t* b,
@@ -126,6 +153,19 @@ extern "C" int repro_xnor_dot_mxu(const int32_t* a, const int32_t* b,
   const dim3 grid(static_cast<unsigned>((n + kBN - 1) / kBN),
                   static_cast<unsigned>((m + kBM - 1) / kBM));
   xnor_dot_mxu_kernel<<<grid, kThreads, 0, stream>>>(
+      reinterpret_cast<const uint32_t*>(a), reinterpret_cast<const uint32_t*>(b),
+      out, m, n, kw);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int repro_xnor_dot_mxu_batched(const int32_t* a, const int32_t* b,
+                                          int32_t* out, long long e,
+                                          long long m, long long n,
+                                          long long kw, cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned>((n + kBN - 1) / kBN),
+                  static_cast<unsigned>((m + kBM - 1) / kBM),
+                  static_cast<unsigned>(e));
+  xnor_dot_mxu_batched_kernel<<<grid, kThreads, 0, stream>>>(
       reinterpret_cast<const uint32_t*>(a), reinterpret_cast<const uint32_t*>(b),
       out, m, n, kw);
   return static_cast<int>(cudaGetLastError());

@@ -43,6 +43,9 @@ _PROTOTYPES = {
     "repro_pack_sign": 2 * [_PTRS] + 3 * [_DIMS],
     "repro_xnor_mismatch": 3 * [_PTRS] + 3 * [_DIMS],
     "repro_xnor_dot_mxu": 3 * [_PTRS] + 3 * [_DIMS],
+    # the expert-batched forms: (a, b, out, e, m, n, kw)
+    "repro_xnor_mismatch_batched": 3 * [_PTRS] + 4 * [_DIMS],
+    "repro_xnor_dot_mxu_batched": 3 * [_PTRS] + 4 * [_DIMS],
     "repro_quant_pack_planes": 3 * [_PTRS] + 3 * [_DIMS] + [_INT],
     "repro_kbit_plane_gemm": 3 * [_PTRS] + 3 * [_DIMS] + 2 * [_INT],
     "repro_kbit_mxu_gemm": 3 * [_PTRS] + 3 * [_DIMS] + 2 * [_INT],

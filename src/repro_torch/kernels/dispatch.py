@@ -14,10 +14,13 @@ It owns the four concerns of the JAX module:
    ===========  ==================  ==============================  =========
    backend      operands            kernel                          prologue
    ===========  ==================  ==============================  =========
-   ``vpu``      1-bit words         xnor+popcount (K2)              pack_sign
-   ``mxu``      1-bit words         ±1 int8 ``mma`` (K3)            pack_sign
+   ``vpu``      1-bit words         xnor+popcount (K2; K7 for the   pack_sign
+                                    expert-batched buckets)
+   ``mxu``      1-bit words         ±1 int8 ``mma`` (K3; K8         pack_sign
+                                    batched)
    ``xla``      float acts, any     unpack / dequant the weights,   float
-                packed weights      ``torch.matmul`` (no kernel)
+                packed weights      ``torch.matmul`` (no kernel;
+                                    :func:`ragged_dot` grouped)
    ``vpu-kN``   N-bit plane stacks  AND+popcount per plane pair     pack_planes
                 (N = 2, 4, 8)       (K5)
    ``mxu-kN``   N-bit plane stacks  u8 code lanes, one ``mma``      pack_planes
@@ -41,9 +44,17 @@ The k-bit dot is recovered from the integer GEMM S and the row-sums T as
 fp32, by the fp32 reciprocal of Na*Nw as XLA compiles the JAX package's
 divide, so the two packages give the same bits.
 
+The grouped (MoE) entry point :func:`quant_gemm_grouped` runs the same
+prologue once over the expert-sorted rows, scatters the packed words into
+dense per-expert buckets ``(E, capacity, Kw)`` on the device (no host
+sync), and contracts them against the ``(E, N, Kw)`` packed expert stacks
+on the expert-batched kernels (``vpu`` K7, ``mxu`` K8); ``xla`` takes the
+float rows to :func:`ragged_dot` over the unpacked stacks.
+
 Not carried over: the TPU tile table, ``select_tiles`` and its autotune
-cache (each CUDA kernel picks its own tiles); the grouped/MoE entry points
-(slice 4); the ``shard-*`` family (slice 6).
+cache (each CUDA kernel picks its own tiles); the k-bit grouped arm (plane
+stacks per expert, K9/K10: slice 4b); the ``shard-*`` family and the
+expert-parallel grouped layout (slice 6).
 """
 
 from __future__ import annotations
@@ -61,7 +72,8 @@ from repro_torch.kernels.kbit_mxu import kbit_mxu_gemm, kbit_mxu_gemm_plain
 from repro_torch.kernels.pack_bits import (pack_sign, quant_pack_planes,
                                            quant_pack_planes_plain)
 from repro_torch.kernels.xnor_gemm import (mxu_pad_inflation, xnor_dot_mxu,
-                                           xnor_mismatch)
+                                           xnor_dot_mxu_batched, xnor_mismatch,
+                                           xnor_mismatch_batched)
 
 WORD_BITS = bitpack.WORD_BITS
 
@@ -163,6 +175,12 @@ class Backend:
     ``from_float_kbit(x2, w_planes, a_bits, w_bits, k_true)`` returns the
     fake-quant DoReFa dot straight from float activations.
 
+    Grouped (MoE) surface: ``gemm_grouped(buckets, w_stack, k_true) ->
+    (E, capacity, N) int32`` returns the exact ±1 dots of packed
+    ``(E, capacity, Kw)`` buckets against ``(E, N, Kw)`` packed stacks;
+    ``from_float_grouped(x_sorted, w_stack, group_sizes, k_true)`` is the
+    float-activation shortcut (``xla``).
+
     ``prologue`` declares how float operands are prepared (a
     :class:`PrologueSpec` kind)."""
 
@@ -173,6 +191,8 @@ class Backend:
     gemm_kbit: Callable | None = None
     from_float_kbit: Callable | None = None
     prologue: str = "pack_sign"
+    gemm_grouped: Callable | None = None
+    from_float_grouped: Callable | None = None
 
 
 def _vpu_gemm(ap, bp, k_true):
@@ -184,6 +204,16 @@ def _vpu_gemm(ap, bp, k_true):
 def _mxu_gemm(ap, bp, k_true):
     # the kernel contracts exactly the operands' Kw words
     return xnor_dot_mxu(ap, bp) - mxu_pad_inflation(ap.shape[1], k_true)
+
+
+def _vpu_gemm_grouped(buckets, w_stack, k_true):
+    return k_true - 2 * xnor_mismatch_batched(buckets, w_stack)
+
+
+def _mxu_gemm_grouped(buckets, w_stack, k_true):
+    # corrected by the operands' own Kw, the words the kernel contracted
+    return (xnor_dot_mxu_batched(buckets, w_stack)
+            - mxu_pad_inflation(buckets.shape[-1], k_true))
 
 
 # --- xla: plain ops, no kernel (the JAX package leaves these to XLA) -------
@@ -203,6 +233,33 @@ def _xla_from_float(x2, w_packed, k_true):
     w_pm1 = bitpack.unpack_sign(w_packed, k_true)  # (N, K)
     one = torch.ones((), dtype=torch.float32, device=x2.device)
     return torch.where(x2 >= 0, one, -one) @ w_pm1.T
+
+
+def ragged_dot(x: torch.Tensor, w: torch.Tensor,
+               group_sizes: torch.Tensor) -> torch.Tensor:
+    """``lax.ragged_dot``: rows ``[start_i, start_i + group_sizes[i])`` of
+    ``x`` (T, K) times ``w[i]`` (K, N); rows past ``sum(group_sizes)`` are
+    zeros.  Plain ``torch.matmul`` per group, with the group sizes read on
+    the host — the fake-quant oracle's contraction and the ``xla``
+    backend's, never a packed kernel path."""
+    out = torch.zeros((x.shape[0], w.shape[-1]), dtype=torch.result_type(x, w),
+                      device=x.device)
+    start = 0
+    for i, size in enumerate(group_sizes.tolist()):
+        if size:
+            out[start:start + size] = x[start:start + size] @ w[i]
+        start += size
+    return out
+
+
+def _xla_from_float_grouped(x_sorted, w_stack, group_sizes, k_true):
+    """Grouped ``xla``: the packed stacks unpack to ±1 (E, K, N) and
+    :func:`ragged_dot` contracts the signs of the rows in float32 (exact
+    for ±1 sums below 2^24)."""
+    w_ekn = bitpack.unpack_sign(w_stack, k_true).transpose(1, 2)
+    one = torch.ones((), dtype=torch.float32, device=x_sorted.device)
+    return ragged_dot(torch.where(x_sorted >= 0, one, -one), w_ekn,
+                      group_sizes)
 
 
 def _dequant_weight_planes(w_planes, k_true, w_bits):
@@ -242,9 +299,10 @@ def get_backend(name: str) -> Backend:
                          f"{sorted(_REGISTRY)}") from None
 
 
-register_backend(Backend("vpu", _vpu_gemm))
-register_backend(Backend("mxu", _mxu_gemm))
+register_backend(Backend("vpu", _vpu_gemm, gemm_grouped=_vpu_gemm_grouped))
+register_backend(Backend("mxu", _mxu_gemm, gemm_grouped=_mxu_gemm_grouped))
 register_backend(Backend("xla", _xla_gemm, from_float=_xla_from_float,
+                         from_float_grouped=_xla_from_float_grouped,
                          # S from reassembled codes, a float64 matmul:
                          # the code-lane kernel's plain version
                          gemm_kbit=kbit_mxu_gemm_plain,
@@ -510,3 +568,103 @@ class QuantGemmCall:
             x, w_packed, k_true=self.k_true, config=self.config,
             epilogue=self.epilogue, scale=scale, bias=bias,
             w_bits=self.w_bits, a_bits=self.a_bits, prologue=self.prologue)
+
+
+def quant_gemm_grouped(
+    x_sorted: torch.Tensor,  # (T, K) float rows, sorted by group
+    w_stack,  # (E, N, Kw) packed expert stack, or a tuple of them
+    group_sizes: torch.Tensor,  # (E,) int, sum <= T
+    *,
+    k_true: int,
+    config: GemmConfig = DEFAULT_GEMM_CONFIG,
+    expert_capacity: int | None = None,
+    out_dtype=torch.float32,
+    w_bits: int | None = None,
+    a_bits: int | None = None,
+):
+    """Grouped (MoE expert-stacked) packed GEMM.
+
+    Row ``i`` of ``x_sorted`` is contracted against the packed weights of
+    its group (groups are contiguous: the first ``group_sizes[0]`` rows
+    belong to expert 0, ...).  Rows beyond ``sum(group_sizes)`` return
+    zeros, and rows overflowing a bucket (``expert_capacity``, default T:
+    no drops) are dropped (zeros) on every backend.
+
+    ``w_stack`` may be a tuple of same-shape stacks (MoE up + gate): the
+    activations are binarized, packed and bucketed once and contracted
+    against each stack, returning a tuple.
+
+    ``vpu`` / ``mxu`` scatter the packed words into dense per-expert
+    buckets ``(E, capacity, Kw)`` and run the expert-batched kernel (K7 /
+    K8), so only packed words reach it; the dense bucket form computes
+    every bucket row, E-fold the ragged work at full capacity.  Group
+    sizes, bucket indices and the validity mask stay on the device: the
+    packed path reads nothing back to the host.  ``xla`` contracts the
+    float rows with :func:`ragged_dot` over the unpacked stacks."""
+    stacks = w_stack if isinstance(w_stack, tuple) else (w_stack,)
+    t, k = x_sorted.shape
+    e = stacks[0].shape[0]
+    if k != k_true:
+        raise ValueError(f"x has K={k}, expected k_true={k_true}")
+    if (w_bits or 1) > 1 or (a_bits or 1) > 1:
+        raise NotImplementedError(
+            f"grouped k-bit GEMM (w{w_bits}a{a_bits}: per-expert plane "
+            "stacks on K9/K10) comes with slice 4b of the port")
+    if any(w.ndim != 3 or w.shape != stacks[0].shape for w in stacks):
+        raise ValueError(f"expert stacks must share one (E, N, Kw) shape: "
+                         f"{[tuple(w.shape) for w in stacks]}")
+
+    ec = expert_capacity or t
+    group_sizes = group_sizes.to(device=x_sorted.device, dtype=torch.int64)
+    ends = torch.cumsum(group_sizes, 0)
+    starts = ends - group_sizes
+    row = torch.arange(t, device=x_sorted.device)
+    g = torch.searchsorted(ends, row, right=True)
+    g_safe = g.clamp(max=e - 1)
+    pos = row - starts[g_safe]
+    valid = (g < e) & (pos < ec)
+
+    x_sorted = x_sorted.to(torch.float32).contiguous()
+    be = get_backend(resolve_backend(config.backend, 1))
+    if be.from_float_grouped is not None:
+        outs = tuple(
+            torch.where(valid[:, None],
+                        be.from_float_grouped(x_sorted, w, group_sizes,
+                                              k_true), 0.0).to(out_dtype)
+            for w in stacks)
+        return outs if isinstance(w_stack, tuple) else outs[0]
+    if be.gemm_grouped is None:
+        raise ValueError(f"backend {be.name!r} has no grouped GEMM")
+
+    buckets = _pack_sign_buckets(x_sorted, g, pos, valid, e, ec,
+                                 config.fused_prologue)
+    cell = g_safe * ec + pos.clamp(max=ec - 1)  # each row's bucket cell
+    outs = []
+    for w in stacks:
+        dots = be.gemm_grouped(buckets, w, k_true)  # (E, ec, N)
+        y = dots.reshape(e * ec, -1)[cell]
+        outs.append(torch.where(valid[:, None], y, 0).to(out_dtype))
+    return tuple(outs) if isinstance(w_stack, tuple) else outs[0]
+
+
+def _pack_sign_buckets(x_sorted, g, pos, valid, e, ec, fused):
+    """The grouped 1-bit prologue: route rows into (E, capacity, Kw) packed
+    buckets.  When the capacity bound shrinks the bucket total below the
+    row count (E * ec < T, a tight ``expert_capacity``), the float rows are
+    routed first and only the bucket cells run through the pack kernel:
+    rows dropped by the capacity bound are never packed, and empty cells
+    hold -1.0 (bit 0).  Otherwise the T rows pack once and the packed words
+    scatter into zero buckets.  Invalid rows write to one extra cell that
+    is cut off, so the scatter needs no host-side count."""
+    t, k = x_sorted.shape
+    dest = torch.where(valid, g * ec + pos, e * ec)
+    if e * ec < t:
+        xb = torch.full((e * ec + 1, k), -1.0, dtype=x_sorted.dtype,
+                        device=x_sorted.device)
+        xb[dest] = x_sorted
+        return pack_activations(xb[:-1], fused=fused).reshape(e, ec, -1)
+    xp = pack_activations(x_sorted, fused=fused)
+    buckets = torch.zeros((e * ec + 1, xp.shape[1]), dtype=xp.dtype,
+                          device=xp.device)
+    buckets[dest] = xp
+    return buckets[:-1].reshape(e, ec, -1)

@@ -20,7 +20,14 @@ On a CUDA tensor each wrapper launches its kernel (or raises); on a CPU
 tensor it runs its ``*_plain`` version, which repeats the kernel's integer
 algorithm in PyTorch ops (int64 SWAR popcount / ±1 unpack).  Both raw
 outputs are K-partial-safe: integer partials over disjoint Kw slices sum
-exactly.  The expert-batched variants wait for slice 4.
+exactly.
+
+``xnor_mismatch_batched`` / ``xnor_dot_mxu_batched`` are the same two
+functions over a leading expert axis, ``(E, M, Kw) x (E, N, Kw) -> (E, M,
+N)`` — the MoE expert buckets of ``dispatch.quant_gemm_grouped``.  Their
+CUDA kernels are the 2-D tiles with ``blockIdx.z`` = expert, in the same
+sources under their own C entry points (so launch counts and profiler
+names tell them from the 2-D kernels).
 """
 
 from __future__ import annotations
@@ -74,22 +81,47 @@ def xnor_dot_mxu_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (ua @ ub.T).to(torch.int32)
 
 
-def _check_operands(a: torch.Tensor, b: torch.Tensor) -> None:
-    _cuda.require(a, "a_packed", torch.int32, 2)
-    _cuda.require(b, "b_packed", torch.int32, 2)
-    if a.shape[1] != b.shape[1]:
-        raise ValueError(f"Kw mismatch: {tuple(a.shape)} vs {tuple(b.shape)}")
+def xnor_mismatch_batched_plain(a: torch.Tensor,
+                                b: torch.Tensor) -> torch.Tensor:
+    """Plain version of the batched vpu kernel: (E, M, Kw) x (E, N, Kw)
+    int32 words -> (E, M, N) int32, the 2-D algorithm per expert."""
+    out = torch.empty((a.shape[0], a.shape[1], b.shape[1]), dtype=torch.int32,
+                      device=a.device)
+    for e in range(a.shape[0]):
+        out[e] = xnor_mismatch_plain(a[e], b[e])
+    return out
+
+
+def xnor_dot_mxu_batched_plain(a: torch.Tensor,
+                               b: torch.Tensor) -> torch.Tensor:
+    """Plain version of the batched mxu kernel: every expert's words
+    unpacked to ±1 (pad bits included) and contracted in float64 (exact) ->
+    (E, M, N) int32 padded dots."""
+    k_all = a.shape[-1] * WORD_BITS
+    ua = bitpack.unpack_sign(a, k_all, torch.float64)
+    ub = bitpack.unpack_sign(b, k_all, torch.float64)
+    return torch.bmm(ua, ub.transpose(1, 2)).to(torch.int32)
+
+
+def _check_operands(a: torch.Tensor, b: torch.Tensor, ndim: int = 2) -> None:
+    _cuda.require(a, "a_packed", torch.int32, ndim)
+    _cuda.require(b, "b_packed", torch.int32, ndim)
+    if a.shape[-1] != b.shape[-1] or a.shape[:-2] != b.shape[:-2]:
+        raise ValueError(f"Kw mismatch or expert counts differ: "
+                         f"{tuple(a.shape)} vs {tuple(b.shape)}")
 
 
 def _launch(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    m, kw = a.shape
-    n = b.shape[0]
-    out = torch.empty((m, n), dtype=torch.int32, device=a.device)
+    """Launch ``repro_{name}`` on 2-D operands, or on 3-D expert stacks
+    (the ``*_batched`` entry points, which take the expert count first)."""
+    *lead, m, kw = a.shape
+    n = b.shape[-2]
+    out = torch.empty((*lead, m, n), dtype=torch.int32, device=a.device)
     if out.numel() == 0:
         return out
     with torch.cuda.device(a.device):
         rc = getattr(_cuda.lib(), f"repro_{name}")(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, kw,
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), *lead, m, n, kw,
             _cuda.stream_handle(a.device))
     _cuda.check(rc, name)
     _cuda.LAUNCHES[name] += 1
@@ -114,3 +146,23 @@ def xnor_dot_mxu(a_packed: torch.Tensor,
     if _cuda.on_cpu(a_packed, b_packed):
         return xnor_dot_mxu_plain(a_packed, b_packed)
     return _launch("xnor_dot_mxu", a_packed, b_packed)
+
+
+def xnor_mismatch_batched(a_packed: torch.Tensor,
+                          b_packed: torch.Tensor) -> torch.Tensor:
+    """Expert-batched VPU path: (E, M, Kw) x (E, N, Kw) -> (E, M, N) int32
+    raw xor-mismatch counts (K7)."""
+    _check_operands(a_packed, b_packed, 3)
+    if _cuda.on_cpu(a_packed, b_packed):
+        return xnor_mismatch_batched_plain(a_packed, b_packed)
+    return _launch("xnor_mismatch_batched", a_packed, b_packed)
+
+
+def xnor_dot_mxu_batched(a_packed: torch.Tensor,
+                         b_packed: torch.Tensor) -> torch.Tensor:
+    """Expert-batched MXU path: (E, M, N) int32 *padded* ±1 dots over
+    exactly Kw words (K8); subtract ``mxu_pad_inflation(Kw, k_true)``."""
+    _check_operands(a_packed, b_packed, 3)
+    if _cuda.on_cpu(a_packed, b_packed):
+        return xnor_dot_mxu_batched_plain(a_packed, b_packed)
+    return _launch("xnor_dot_mxu_batched", a_packed, b_packed)

@@ -13,6 +13,12 @@ model: at 1 bit it asserts identical greedy tokens (paper §2.2.2); at k
 bits, where packed and fake-quant agree per GEMM to fp32 rounding only, it
 reports how many tokens agree and where the streams first part.
 
+``--arch`` resolves through the registry: granite-3-2b, or the MoE
+deepseek-moe-16b / qwen2-moe-a2.7b, whose packed 1-bit experts run on the
+expert-batched kernels (k-bit expert stacks raise: slice 4b).  The model is
+initialised whole in fp32 before packing, so cut full-width deepseek-moe
+with ``--layers``.
+
 ``--kv-block-size N`` swaps the per-slot contiguous KV slabs for the
 block-table paged pool (greedy tokens stay bit-identical); add
 ``--prefill-chunk`` to interleave long-prompt prefill with decode steps and
@@ -32,6 +38,8 @@ Example:
       --smoke --device cpu --quant w4a4 --check-fakequant
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
       --smoke --device cpu --prompts 2 --new-tokens 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b \\
+      --smoke --device cpu --backend mxu --check-fakequant
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
       --quant binary --backend vpu --kv-block-size 16 --prefill-chunk 256 \\
       --shared-prefix --fused-attn --kv-bits 8

@@ -1,9 +1,13 @@
-"""Decoder-only LM for pure attention + MLP stacks (PyTorch port of
-``repro.models.lm``: the dense granite/llama family).
+"""Decoder-only LM for attention stacks with a dense or MoE FFN (PyTorch
+port of ``repro.models.lm``: the dense granite/llama family and the
+deepseek-moe / qwen2-moe family).
 
-Every GEMM goes through ``QCtx.dense``, so one ``QuantPolicy`` turns the
-model into its BMXNet-binarized variant.  The hybrid / recurrent / MoE /
-vision members of the JAX pool wait for later slices.
+Block ``i`` gets its FFN from ``ffn_pattern`` (``"mlp"`` or ``"moe"``);
+``first_dense_layers`` keeps a dense ``first_dense_mlp`` for the first
+layers of an MoE stack (deepseek-moe).  Every GEMM goes through
+``QCtx.dense`` or the MoE's grouped GEMM, so one ``QuantPolicy`` turns the
+model into its BMXNet-binarized variant.  The hybrid / recurrent / vision
+members of the JAX pool wait for later slices.
 """
 
 from __future__ import annotations
@@ -28,7 +32,11 @@ class LMConfig:
     d_model: int
     vocab_size: int
     attn: attn_lib.AttnConfig
-    mlp: mlp_lib.MLPConfig
+    ffn_pattern: tuple[str, ...] = ("mlp",)
+    mlp: mlp_lib.MLPConfig | None = None
+    moe: mlp_lib.MoEConfig | None = None
+    first_dense_layers: int = 0  # deepseek-moe: dense FFN for first layer(s)
+    first_dense_mlp: mlp_lib.MLPConfig | None = None
     norm: str = "rmsnorm"
     tie_embeddings: bool = False
     logit_softcap: float | None = None
@@ -42,6 +50,12 @@ class LMConfig:
             return (self.vocab_size + m - 1) // m * m
         return self.vocab_size
 
+    def ffn_kind(self, i: int) -> str:
+        k = self.ffn_pattern[i % len(self.ffn_pattern)]
+        if k == "moe" and i < self.first_dense_layers:
+            return "dense_first"
+        return k
+
 
 # --------------------------------------------------------------------------
 # init
@@ -54,20 +68,30 @@ def init(gen: torch.Generator, cfg: LMConfig,
     package's layout (dense ``w`` is ``(d_in, d_out)``)."""
     dev = gen.device
     p: Params = {"embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype)}
-    p["layers"] = [
-        {
-            "pre_norm": norm_init(cfg.norm, cfg.d_model, device=dev),
-            "attn": attn_lib.attn_init(gen, cfg.attn, dtype=dtype),
-            "pre_ffn_norm": norm_init(cfg.norm, cfg.d_model, device=dev),
-            "mlp": mlp_lib.mlp_init(gen, cfg.mlp, dtype=dtype),
-        }
-        for _ in range(cfg.n_layers)
-    ]
+    p["layers"] = [_block_init(gen, i, cfg, dtype) for i in range(cfg.n_layers)]
     p["final_norm"] = norm_init(cfg.norm, cfg.d_model, device=dev)
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, cfg.d_model, cfg.padded_vocab,
                                   dtype=dtype)
     return p
+
+
+def _block_init(gen: torch.Generator, i: int, cfg: LMConfig,
+                dtype=torch.float32) -> Params:
+    dev = gen.device
+    blk: Params = {"pre_norm": norm_init(cfg.norm, cfg.d_model, device=dev),
+                   "attn": attn_lib.attn_init(gen, cfg.attn, dtype=dtype),
+                   "pre_ffn_norm": norm_init(cfg.norm, cfg.d_model, device=dev)}
+    ffn = cfg.ffn_kind(i)
+    if ffn == "mlp":
+        blk["mlp"] = mlp_lib.mlp_init(gen, cfg.mlp, dtype=dtype)
+    elif ffn == "dense_first":
+        blk["mlp"] = mlp_lib.mlp_init(gen, cfg.first_dense_mlp, dtype=dtype)
+    elif ffn == "moe":
+        blk["moe"] = mlp_lib.moe_init(gen, cfg.moe, dtype=dtype)
+    else:
+        raise ValueError(f"ffn kind {ffn!r} is not in the port yet")
+    return blk
 
 
 # --------------------------------------------------------------------------
@@ -79,6 +103,15 @@ def _embed(params, cfg: LMConfig, ctx: QCtx, tokens):
     return params["embed"]["table"].to(ctx.compute_dtype)[tokens]
 
 
+def _ffn_forward(blk, i, x, cfg: LMConfig, ctx: QCtx, path: str):
+    """Block ``i``'s FFN on its normed input: (output, aux loss)."""
+    kind = cfg.ffn_kind(i)
+    if kind == "moe":
+        return mlp_lib.moe_apply(blk["moe"], x, cfg.moe, ctx, f"{path}/moe")
+    mcfg = cfg.first_dense_mlp if kind == "dense_first" else cfg.mlp
+    return mlp_lib.mlp_apply(blk["mlp"], x, mcfg, ctx, f"{path}/mlp"), 0.0
+
+
 def block_forward(blk, i, x, positions, cfg: LMConfig, ctx: QCtx):
     path = f"layers/{i}"
     h = norm_apply(cfg.norm, blk["pre_norm"], x)
@@ -86,8 +119,8 @@ def block_forward(blk, i, x, positions, cfg: LMConfig, ctx: QCtx):
                               f"{path}/attn")
     x = x + h
     h = norm_apply(cfg.norm, blk["pre_ffn_norm"], x)
-    h = mlp_lib.mlp_apply(blk["mlp"], h, cfg.mlp, ctx, f"{path}/mlp")
-    return x + h
+    h, aux = _ffn_forward(blk, i, h, cfg, ctx, path)
+    return x + h, aux
 
 
 def _logits(params, cfg: LMConfig, ctx: QCtx, x):
@@ -110,14 +143,15 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 def forward(params: Params, cfg: LMConfig, ctx: QCtx,
             tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence causal forward.  Returns (logits (B,S,V), aux loss) —
-    the aux loss is 0 for dense MLP stacks."""
+    """Full-sequence causal forward.  Returns (logits (B,S,V), aux loss):
+    the sum of the MoE layers' load-balance losses, 0 for dense stacks."""
     x = _embed(params, cfg, ctx, tokens)
     positions = _positions(*tokens.shape, tokens.device)
+    aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for i, blk in enumerate(params["layers"]):
-        x = block_forward(blk, i, x, positions, cfg, ctx)
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    return _logits(params, cfg, ctx, x), aux
+        x, aux = block_forward(blk, i, x, positions, cfg, ctx)
+        aux_total = aux_total + aux
+    return _logits(params, cfg, ctx, x), aux_total
 
 
 # --------------------------------------------------------------------------
@@ -179,7 +213,7 @@ def decode_step(params: Params, cfg: LMConfig, ctx: QCtx, cache: Params,
                                     write_mask=write_mask)
         x = x + h
         h = norm_apply(cfg.norm, blk["pre_ffn_norm"], x)
-        x = x + mlp_lib.mlp_apply(blk["mlp"], h, cfg.mlp, ctx, f"{path}/mlp")
+        x = x + _ffn_forward(blk, i, h, cfg, ctx, path)[0]
     return _logits(params, cfg, ctx, x), cache
 
 
@@ -209,7 +243,7 @@ def decode_window(params: Params, cfg: LMConfig, ctx: QCtx, cache: Params,
                                     f"{path}/attn", kv, write_mask=write_mask)
         x = x + h
         h = norm_apply(cfg.norm, blk["pre_ffn_norm"], x)
-        x = x + mlp_lib.mlp_apply(blk["mlp"], h, cfg.mlp, ctx, f"{path}/mlp")
+        x = x + _ffn_forward(blk, i, h, cfg, ctx, path)[0]
     return _logits(params, cfg, ctx, x[:, -1:, :]), cache
 
 
@@ -235,5 +269,5 @@ def prefill(params: Params, cfg: LMConfig, ctx: QCtx, tokens: torch.Tensor,
                       f"{path}/attn/o")
         x = x + h
         hf = norm_apply(cfg.norm, blk["pre_ffn_norm"], x)
-        x = x + mlp_lib.mlp_apply(blk["mlp"], hf, cfg.mlp, ctx, f"{path}/mlp")
+        x = x + _ffn_forward(blk, i, hf, cfg, ctx, path)[0]
     return _logits(params, cfg, ctx, x[:, -1:, :]), cache

@@ -1,12 +1,16 @@
 """Architecture registry: ``--arch <id>`` resolution for the port's
-launchers and tests.  This slice knows granite-3-2b only."""
+launchers and tests — the dense granite-3-2b and the MoE deepseek-moe-16b
+and qwen2-moe-a2.7b."""
 
 from __future__ import annotations
 
-from repro_torch.configs import granite_3_2b
+from repro_torch.configs import (deepseek_moe_16b, granite_3_2b,
+                                 qwen2_moe_a27b)
 from repro_torch.configs.common import ArchSpec
 
-ARCHS: dict[str, ArchSpec] = {m.SPEC.arch_id: m.SPEC for m in (granite_3_2b,)}
+ARCHS: dict[str, ArchSpec] = {
+    m.SPEC.arch_id: m.SPEC
+    for m in (granite_3_2b, deepseek_moe_16b, qwen2_moe_a27b)}
 
 
 def get(arch_id: str) -> ArchSpec:

@@ -23,11 +23,14 @@ Params = dict[str, Any]
 @dataclasses.dataclass(frozen=True)
 class QCtx:
     """Carries the quantization policy, compute dtype and ``gemm_config``
-    (how every packed GEMM executes) through a model."""
+    (how every packed GEMM executes) through a model.  ``mesh`` is the
+    device mesh of an expert-parallel MoE (slice 6); the port runs on one
+    device and leaves it None."""
 
     policy: QuantPolicy
     compute_dtype: Any = torch.bfloat16
     gemm_config: GemmConfig = GemmConfig()
+    mesh: Any = None
 
     def dense(self, params: Params, x: torch.Tensor, path: str) -> torch.Tensor:
         return qlayers.qdense(params, x, self.policy.spec(path),

@@ -76,9 +76,10 @@ def test_launch_counts(cuda):
                             config=dispatch.GemmConfig(backend=backend))
     dispatch.quant_gemm(x.cpu(), w.cpu(), k_true=70)  # plain versions
     assert _cuda.LAUNCHES == {"pack_sign": 3, "xnor_mismatch": 1,
-                              "xnor_dot_mxu": 1, "quant_pack_planes": 0,
-                              "kbit_plane_gemm": 0, "kbit_mxu_gemm": 0,
-                              "flash_decode": 0}
+                              "xnor_dot_mxu": 1, "xnor_mismatch_batched": 0,
+                              "xnor_dot_mxu_batched": 0,
+                              "quant_pack_planes": 0, "kbit_plane_gemm": 0,
+                              "kbit_mxu_gemm": 0, "flash_decode": 0}
 
 
 @pytest.mark.parametrize("backend", ["vpu", "mxu"])
@@ -93,6 +94,62 @@ def test_quant_gemm_cuda_equals_cpu(cuda, backend, k):
     want = dispatch.quant_gemm(x.cpu(), wp.cpu(), k_true=k, config=cfg,
                                epilogue=ep)
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("e,m,n,kw", [(1, 1, 1, 1), (3, 5, 33, 7),
+                                      (64, 24, 1408, 64), (64, 24, 2048, 44),
+                                      (2, 77, 65, 9), (5, 17, 100, 5)])
+def test_batched_gemm_kernels_match_plain(cuda, e, m, n, kw):
+    a, b = _words((e, m, kw), 3, cuda), _words((e, n, kw), 4, cuda)
+    got_v = xnor_gemm.xnor_mismatch_batched(a, b)
+    got_m = xnor_gemm.xnor_dot_mxu_batched(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got_v, xnor_gemm.xnor_mismatch_batched_plain(a, b))
+    assert torch.equal(got_m, xnor_gemm.xnor_dot_mxu_batched_plain(a, b))
+
+
+def _grouped_operands(dev, t=48, k=300, e=8, n=70, stacks=2):
+    x = _floats((t, k), 5, dev)
+    ws = tuple(pack_bits.pack_sign_plain(_floats((e, n, k), 6 + i, dev))
+               for i in range(stacks))
+    gs = torch.tensor([9, 0, 13, 1, 0, 11, 6, 4], device=dev)[:e]
+    return x, ws, gs
+
+
+def test_grouped_launch_counts(cuda):
+    """A grouped call packs once and launches K7 (``vpu``) or K8
+    (``mxu``) once per stack — never the 2-D K2/K3 — and ``xla`` and the
+    CPU launch nothing."""
+    x, ws, gs = _grouped_operands(cuda)
+    _cuda.reset_launches()
+    for backend in ("vpu", "mxu", "xla"):
+        dispatch.quant_gemm_grouped(x, ws, gs, k_true=x.shape[1],
+                                    config=dispatch.GemmConfig(backend=backend))
+    dispatch.quant_gemm_grouped(x.cpu(), tuple(w.cpu() for w in ws), gs.cpu(),
+                                k_true=x.shape[1])
+    assert _cuda.LAUNCHES == {"pack_sign": 2, "xnor_mismatch": 0,
+                              "xnor_dot_mxu": 0, "xnor_mismatch_batched": 2,
+                              "xnor_dot_mxu_batched": 2,
+                              "quant_pack_planes": 0, "kbit_plane_gemm": 0,
+                              "kbit_mxu_gemm": 0, "flash_decode": 0}
+
+
+@pytest.mark.parametrize("backend", ["vpu", "mxu"])
+@pytest.mark.parametrize("stacks", [1, 2])
+@pytest.mark.parametrize("capacity", [None, 6, 2])  # full, drops, route-first
+def test_quant_gemm_grouped_cuda_equals_cpu(cuda, backend, stacks, capacity):
+    x, ws, gs = _grouped_operands(cuda, stacks=stacks)
+    w = ws if stacks > 1 else ws[0]
+    cfg = dispatch.GemmConfig(backend=backend)
+    got = dispatch.quant_gemm_grouped(x, w, gs, k_true=x.shape[1], config=cfg,
+                                      expert_capacity=capacity)
+    want = dispatch.quant_gemm_grouped(
+        x.cpu(), tuple(v.cpu() for v in ws) if stacks > 1 else w.cpu(),
+        gs.cpu(), k_true=x.shape[1], config=cfg, expert_capacity=capacity)
+    got = got if stacks > 1 else (got,)
+    want = want if stacks > 1 else (want,)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
 
 
 def _acts(shape, seed, dev, a_bits):
@@ -142,9 +199,10 @@ def test_kbit_launch_counts(cuda):
                             config=dispatch.GemmConfig(backend=backend))
     dispatch.quant_gemm(x.cpu(), w.cpu(), k_true=70, w_bits=4, a_bits=4)
     assert _cuda.LAUNCHES == {"pack_sign": 0, "xnor_mismatch": 0,
-                              "xnor_dot_mxu": 0, "quant_pack_planes": 3,
-                              "kbit_plane_gemm": 1, "kbit_mxu_gemm": 1,
-                              "flash_decode": 0}
+                              "xnor_dot_mxu": 0, "xnor_mismatch_batched": 0,
+                              "xnor_dot_mxu_batched": 0,
+                              "quant_pack_planes": 3, "kbit_plane_gemm": 1,
+                              "kbit_mxu_gemm": 1, "flash_decode": 0}
 
 
 @pytest.mark.parametrize("backend", ["vpu", "mxu"])
@@ -314,3 +372,40 @@ def test_flash_decode_contig_and_launch_count(cuda, tier):
     kk, vv, kpos = kv.gather(cache)
     want = attention._sdpa(cfg, q, kk, vv, attention._mask(cfg, q_pos, kpos))
     torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("backend", ["vpu", "mxu"])
+def test_moe_smoke_serving_packed_equals_fakequant_on_card(cuda, backend):
+    """deepseek-moe smoke on the card: packed greedy streams equal
+    fake-quant's, a second packed run repeats the first (stable sort,
+    fixed-order combine), one slot at a time gives the same streams, and
+    the grouped GEMMs ran on K7 / K8 only."""
+    spec = registry.get("deepseek-moe-16b")
+    cfg = spec.smoke
+    params = lm.init(torch.Generator(device=cuda).manual_seed(0), cfg)
+    packed, _ = converter.convert(params, QuantPolicy.binary())
+    ctx = QCtx(policy=QuantPolicy.binary(), compute_dtype=torch.float32,
+               gemm_config=dispatch.GemmConfig(backend=backend))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in (5, 5, 9, 3, 9, 4)]
+
+    def serve(p, batch=2):
+        eng = engine.Engine(spec, cfg, ctx, p, engine.EngineConfig(
+            batch=batch, cache_len=32, max_new_tokens=6))
+        sched = engine.Scheduler(eng)
+        for pr in prompts:
+            sched.submit(engine.Request(prompt=pr))
+        return sched.run()
+
+    _cuda.reset_launches()
+    first = serve(packed)
+    names = {"vpu": "xnor_mismatch_batched", "mxu": "xnor_dot_mxu_batched"}
+    other = names["mxu" if backend == "vpu" else "vpu"]
+    assert _cuda.LAUNCHES[names[backend]] > 0 and _cuda.LAUNCHES[other] == 0
+    assert _cuda.LAUNCHES["pack_sign"] > 0
+    runs = [serve(packed), serve(params), serve(packed, batch=1)]
+    for got in runs:
+        assert sorted(got) == sorted(first) == list(range(len(prompts)))
+        for rid in first:
+            np.testing.assert_array_equal(got[rid], first[rid])
