@@ -6,8 +6,8 @@ serves granite-3-2b at full width through the continuous-batching
 scheduler on those kernels: packed 1-bit and packed DoReFa w4a4 on the
 contiguous cache, and packed 1-bit on the paged cache with chunked prefill,
 shared prefixes and the flash-decode kernel at every KV tier; then serves
-the MoE deepseek-moe-16b at full width, packed 1-bit, on the expert-batched
-kernels.
+the MoE deepseek-moe-16b at full width, packed 1-bit and packed DoReFa
+w4a4, on the expert-batched kernels.
 
     python3 chip_smoke.py            # needs one CUDA GPU (sm_90a) and nvcc
 
@@ -27,7 +27,11 @@ Phases (any failure exits non-zero before the result line):
    (K7) and int8-unpack (K8) GEMMs exactly at E 1/3/64, 1/24/77 bucket
    rows, N 1408/2048/33 and Kw 44/64/1/5, and ``quant_gemm_grouped`` on
    the card == on the CPU (one stack and up + gate, full and tight
-   capacity, the route-first prologue);
+   capacity, the route-first prologue); the expert-batched plane popcount
+   (K9) and code-lane ``mma`` (K10) GEMMs at the same grid times (ka, kb)
+   in {(4, 4), (8, 8), (8, 4)}, exactly and K9 == K10, and w4a4
+   ``quant_gemm_grouped`` on the card == on the CPU (plane buckets, code
+   sums and the dequantized output exactly);
 3. timing: each kernel, its plain version and one PyTorch yardstick call
    (bf16 ``torch.matmul`` of the ±1 operands for K2/K3, of the dequantized
    DoReFa operands for K5/K6; ``scaled_dot_product_attention`` on the
@@ -37,9 +41,10 @@ Phases (any failure exits non-zero before the result line):
    for a GEMM, that of its function, the integer dot of the codes, on the
    int8 tensor cores, whichever kernel computes it; K2/K5's popcount
    ceiling is printed beside it; for K11 the admitted rows' bytes or its
-   fp32 operations); K7 / K8 at deepseek-moe-16b's expert GEMMs (64
-   experts; 24 bucket rows at decode, 576 at the mix's largest prefill)
-   beside a bf16 ``torch.bmm`` yardstick and their bound;
+   fp32 operations); K7 / K8 (1 bit) and K9 / K10 (w4a4) at
+   deepseek-moe-16b's expert GEMMs (64 experts; 24 bucket rows at decode,
+   576 at the mix's largest prefill) beside a bf16 ``torch.bmm`` yardstick,
+   their bound and (K7, K9) their popcount ceiling;
 4. serving: granite-3-2b at full width (d_model 2048, 32/8 heads, d_ff 8192,
    vocab 49155 padded to 49408), all 40 layers, params from a seeded
    ``torch.Generator`` on the card, each run with its kernel counts set to
@@ -75,6 +80,15 @@ Phases (any failure exits non-zero before the result line):
      identical (one slot at a time reported beside them); K7 / K8 must
      launch 3 x MoE layers x (decode steps + prefills) times on the
      ``vpu`` / ``mxu`` runs and never elsewhere;
+   - the MoE w4a4 cell: the same model and mix under
+     ``QuantPolicy.quantized(4)``, all 28 layers (7.5 GB of expert planes)
+     packed ``vpu`` (-> vpu-k4) and ``mxu`` (-> mxu-k4), whose streams must
+     be identical; at depth 4 ``vpu``, ``mxu`` (identical) and fake-quant
+     (agreement reported, not gated); layer 1's up / gate / down grouped
+     GEMMs within ``rtol=1e-4, atol=2e-4`` of fake-quant's ``ragged_dot``;
+     K9 / K10 must launch 3 x MoE layers x (decode steps + prefills) times
+     on the ``vpu`` / ``mxu`` runs and never elsewhere, K4 on every packed
+     run;
 5. the ``kernels`` JSON line, then the result line.
 
 Per-shape timings, the serving runs and the decode profiles also go to
@@ -135,9 +149,18 @@ KERNELS = {
                               "src/repro/kernels/xnor_gemm.py:250"),
     "xnor_dot_mxu_batched": ("src/repro_torch/csrc/xnor_dot_mxu.cu",
                              "src/repro/kernels/xnor_gemm.py:267"),
+    "kbit_plane_gemm_batched": ("src/repro_torch/csrc/kbit_plane_gemm.cu",
+                                "src/repro/kernels/kbit_gemm.py:197"),
+    "kbit_mxu_gemm_batched": ("src/repro_torch/csrc/kbit_mxu_gemm.cu",
+                              "src/repro/kernels/kbit_mxu.py:261"),
 }
 ONE_BIT = ("pack_sign", "xnor_mismatch", "xnor_dot_mxu")
 MOE_KERNELS = ("xnor_mismatch_batched", "xnor_dot_mxu_batched")  # K7, K8
+# K9, K10
+MOE_KBIT_KERNELS = ("kbit_plane_gemm_batched", "kbit_mxu_gemm_batched")
+MOE_BATCHED = {1: dict(zip(("vpu", "mxu"), MOE_KERNELS)),
+               4: dict(zip(("vpu", "mxu"), MOE_KBIT_KERNELS))}
+MOE_PLANE_PAIRS = ((4, 4), (8, 8), (8, 4))  # (ka, kb) of the K9/K10 parity
 K_BIT = ("quant_pack_planes", "kbit_plane_gemm", "kbit_mxu_gemm")
 
 FP32_FLOPS_PER_S = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
@@ -378,6 +401,123 @@ def parity_moe(dev) -> dict[str, float]:
           f"== on the CPU in {n_grouped} calls (vpu/mxu x one stack/up+gate "
           f"x full/tight capacity; deepseek-moe-16b decode shapes and a "
           f"route-first case)")
+    return err
+
+
+def expert_planes(e: int, n: int, k: int, w_bits: int, gen, dev):
+    """An (E, w_bits, N, Kw) expert plane stack of DoReFa codes of normal
+    weights, codes over the whole stack, as the converter packs it."""
+    from repro_torch.core import bitpack, quant
+
+    w = torch.randn((e, n, k), generator=gen, device=dev)
+    return bitpack.pack_planes(quant.weight_codes(w, w_bits),
+                               w_bits).transpose(0, 1).contiguous()
+
+
+def parity_moe_kbit(dev) -> dict[str, float]:
+    """K9 / K10 against their plain versions and each other, bit for bit,
+    at E in {1, 3, 64}, bucket rows in {1, 24, 77}, N in {1408, 2048, 33},
+    Kw in {44, 64, 1, 5} and (ka, kb) in {(4, 4), (8, 8), (8, 4)} (random
+    words, tail bits zeroed); then ``quant_gemm_grouped`` at w4a4 on the
+    card against the same call on the CPU for ``vpu`` and ``mxu``, full and
+    tight capacity: the plane buckets and code sums exactly, and the
+    dequantized output exactly too (one fp32 multiply of an exact integer
+    on both), at the decode shapes of deepseek-moe-16b and a small ragged
+    shape whose tight capacity takes the route-first prologue."""
+    from repro_torch.kernels import dispatch, kbit_gemm, kbit_mxu
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    err = {name: 0.0 for name in MOE_KBIT_KERNELS}
+    n_cases = 0
+    for e in (1, 3, MOE_EXPERTS):
+        for ec in (1, MOE_DECODE_EC, 77):
+            for n in (1408, 2048, 33):
+                for kw in (44, 64, 1, 5):
+                    for ka, kb in MOE_PLANE_PAIRS:
+                        k_true = kw * 32 - int(torch.randint(
+                            0, 32, (1,), generator=gen, device=dev))
+                        a = expert_words((e, ka, ec, kw), k_true, gen, dev)
+                        b = expert_words((e, kb, n, kw), k_true, gen, dev)
+                        s9 = kbit_gemm.kbit_plane_gemm_batched(a, b)
+                        s10 = kbit_mxu.kbit_mxu_gemm_batched(a, b)
+                        pairs = {
+                            "kbit_plane_gemm_batched": [(
+                                s9, kbit_gemm.kbit_plane_gemm_batched_plain(
+                                    a, b))],
+                            "kbit_mxu_gemm_batched": [
+                                (s10, kbit_mxu.kbit_mxu_gemm_batched_plain(
+                                    a, b)), (s10, s9)]}
+                        torch.cuda.synchronize()
+                        check_exact(pairs, err, f"E={e} ec={ec} N={n} Kw={kw}"
+                                    f" ka={ka} kb={kb}")
+                        n_cases += 1
+                        del a, b, s9, s10, pairs
+    # (label, T, K, N, group sizes, capacities, stack forms): at the decode
+    # shapes the forms the MoE layer calls (up + gate as one tuple, down
+    # alone); the plain versions on the CPU are the costly side
+    grouped = [
+        ("decode up/gate", MOE_DECODE_EC, 2048, 1408,
+         routed_group_sizes(DECODE_M, gen, dev), (None, 3), ("tuple",)),
+        ("decode down", MOE_DECODE_EC, 1408, 2048,
+         routed_group_sizes(DECODE_M, gen, dev), (None, 3), ("one",)),
+        ("ragged", 48, 300, 70,
+         torch.tensor([9, 0, 13, 1, 0, 11, 6, 4], device=dev), (None, 6, 2),
+         ("one", "tuple")),
+    ]
+    n_grouped = 0
+    for label, t, k, n, gs, caps, forms in grouped:
+        e = gs.numel()
+        x = dorefa_acts((t, k), gen, dev, 4)
+        ws = tuple(expert_planes(e, n, k, 4, gen, dev)
+                   for _ in range(2 if "tuple" in forms else 1))
+        ws_cpu = tuple(w.cpu() for w in ws)
+        for cap in caps:
+            # the prologue's plane buckets and code sums, exactly; and at the
+            # small shape the raw S of both kernels against the CPU's
+            ec = cap or t
+            dest, cell, _ = dispatch._bucket_cells(gs.long(), t, ec)
+            bk = dispatch._pack_plane_buckets(x, 4, dest, cell, e, ec, True)
+            bc = dispatch._pack_plane_buckets(x.cpu(), 4, dest.cpu(),
+                                              cell.cpu(), e, ec, True)
+            same = torch.equal(bk[0].cpu(), bc[0]) and torch.equal(
+                bk[1].cpu(), bc[1])
+            if label == "ragged":
+                want = kbit_mxu.kbit_mxu_gemm_batched_plain(bc[0], ws_cpu[0])
+                same = same and all(torch.equal(
+                    fn(bk[0], ws[0]).cpu(), want) for fn in (
+                        kbit_gemm.kbit_plane_gemm_batched,
+                        kbit_mxu.kbit_mxu_gemm_batched))
+            if not same:
+                raise AssertionError(f"grouped w4a4 {label} capacity {cap}: "
+                                     "buckets, code sums or S: card != CPU")
+        for backend in ("vpu", "mxu"):
+            cfg = dispatch.GemmConfig(backend=backend)
+            for form in forms:
+                stacks, cpu = (ws, ws_cpu) if form == "tuple" else (ws[0],
+                                                                    ws_cpu[0])
+                for cap in caps:
+                    got = dispatch.quant_gemm_grouped(
+                        x, stacks, gs, k_true=k, config=cfg,
+                        expert_capacity=cap, w_bits=4, a_bits=4)
+                    want = dispatch.quant_gemm_grouped(
+                        x.cpu(), cpu, gs.cpu(), k_true=k, config=cfg,
+                        expert_capacity=cap, w_bits=4, a_bits=4)
+                    got = got if isinstance(got, tuple) else (got,)
+                    want = want if isinstance(want, tuple) else (want,)
+                    for g_, w_ in zip(got, want):
+                        if not torch.equal(g_.cpu(), w_):
+                            raise AssertionError(
+                                f"quant_gemm_grouped w4a4 {backend} {label} "
+                                f"capacity {cap}: card != CPU")
+                    n_grouped += 1
+    print(f"parity: K9/K10 at {n_cases} (E, rows, N, Kw, ka, kb) cases equal "
+          f"their plain versions and K9 == K10 exactly (int32); w4a4 "
+          f"quant_gemm_grouped on the card == on the CPU in {n_grouped} calls"
+          f" (vpu/mxu x full/tight capacity, route-first included; decode "
+          f"up+gate tuple and down, a ragged case with both forms): plane "
+          f"buckets and code sums exact, the dequantized output exact (its "
+          f"numerator |2S - Nw*T| < 2^24 is exact in fp32, so equal outputs "
+          f"with equal T mean equal S; S itself compared at the ragged case)")
     return err
 
 
@@ -801,65 +941,98 @@ def timing_attn(dev) -> list:
     return rows
 
 
+def moe_operands(bits: int, e: int, ec: int, n: int, k: int, gen, dev):
+    """One expert GEMM's operands: the packed buckets (E, ec, Kw) at 1 bit
+    or (E, 4, ec, Kw) plane buckets at w4a4, the packed expert stack, and
+    the yardstick's bf16 operands, the values the packed GEMM contracts:
+    (E, ec, K) activations and (E, K, N) weights."""
+    from repro_torch.core import bitpack
+    from repro_torch.kernels import pack_bits
+
+    if bits == 1:
+        a = bitpack.pack_sign(torch.randn((e, ec, k), generator=gen,
+                                          device=dev))
+        w = bitpack.pack_sign(torch.randn((e, n, k), generator=gen,
+                                          device=dev))
+        return (a, w, bitpack.unpack_sign(a, k, torch.bfloat16),
+                bitpack.unpack_sign(w, k, torch.bfloat16).transpose(1, 2))
+    x = dorefa_acts((e * ec, k), gen, dev, bits)
+    a, _ = pack_bits.quant_pack_planes(x, bits)
+    a = a.reshape(bits, e, ec, -1).transpose(0, 1).contiguous()
+    w = expert_planes(e, n, k, bits, gen, dev)
+    nq = float((1 << bits) - 1)
+    xq = bitpack.unpack_planes(a.movedim(1, 0), k).to(torch.float32) / nq
+    wq = (2 * bitpack.unpack_planes(w.movedim(1, 0), k).to(torch.float32)
+          - nq) / nq
+    return a, w, xq.to(torch.bfloat16), wq.transpose(1, 2).to(torch.bfloat16)
+
+
 def timing_moe(dev, popc_per_s: float) -> tuple[dict, list]:
-    """K7 and K8 at deepseek-moe-16b's expert GEMMs (64 experts; up / gate
-    N 1408 K 2048, down N 2048 K 1408), at decode (24 bucket rows: 4 tokens
-    x top-6, the single-device capacity T*k) and at the mix's largest
-    prefill run (576 rows: 96 tokens x top-6): kernel, plain version, the
-    bf16 ``torch.bmm`` yardstick on the same (E, rows, K) x (E, K, N) ±1
-    operands, and the bound — the larger of the bytes (expert words, bucket
-    words, int32 output) at the HBM rate and ``2*E*rows*N*K`` int8
-    operations at the tensor cores' peak; K7's popcount ceiling is printed
-    beside it.  Weight stacks cycle through enough copies to overflow the
+    """K7 / K8 (1 bit) and K9 / K10 (w4a4) at deepseek-moe-16b's expert
+    GEMMs (64 experts; up / gate N 1408 K 2048, down N 2048 K 1408), at
+    decode (24 bucket rows: 4 tokens x top-6, the single-device capacity
+    T*k) and at the mix's largest prefill run (576 rows: 96 tokens x
+    top-6): kernel, plain version, the bf16 ``torch.bmm`` yardstick on the
+    same (E, rows, K) x (E, K, N) values (±1, or the dequantized DoReFa
+    codes), and the bound — the larger of the bytes (expert words or
+    planes, bucket words, int32 output) at the HBM rate and
+    ``2*E*rows*N*K`` int8 operations at the tensor cores' peak (the
+    function is the integer dot of the codes); the popcount kernels' (K7,
+    K9) own ceiling at the popc rate is printed beside it, ka*kb = 16 times
+    K7's for K9.  Weight stacks cycle through enough copies to overflow the
     L2 cache, as 27 MoE layers read their experts cold.  Returns (one
     decode step of one MoE layer per kernel: up + gate + down, rows)."""
-    from repro_torch.core import bitpack
-    from repro_torch.kernels import xnor_gemm
+    from repro_torch.kernels import kbit_gemm, kbit_mxu, xnor_gemm
 
     fns = {"xnor_mismatch_batched": (xnor_gemm.xnor_mismatch_batched,
                                      xnor_gemm.xnor_mismatch_batched_plain),
            "xnor_dot_mxu_batched": (xnor_gemm.xnor_dot_mxu_batched,
-                                    xnor_gemm.xnor_dot_mxu_batched_plain)}
+                                    xnor_gemm.xnor_dot_mxu_batched_plain),
+           "kbit_plane_gemm_batched": (kbit_gemm.kbit_plane_gemm_batched,
+                                       kbit_gemm.kbit_plane_gemm_batched_plain),
+           "kbit_mxu_gemm_batched": (kbit_mxu.kbit_mxu_gemm_batched,
+                                     kbit_mxu.kbit_mxu_gemm_batched_plain)}
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)
     e, rows = MOE_EXPERTS, []
-    for ec in (MOE_DECODE_EC, MOE_PREFILL_EC):
-        plain_iters, plain_reps = (2, 3) if ec == MOE_DECODE_EC else (1, 1)
-        for name, n, k in MOE_GEMMS[1:]:  # up has gate's shape: timed once
-            kw = (k + 31) // 32
-            a = bitpack.pack_sign(torch.randn((e, ec, k), generator=gen,
-                                              device=dev))
-            w0 = bitpack.pack_sign(torch.randn((e, n, k), generator=gen,
-                                               device=dev))
-            nw = copies_for(e * n * kw * 4, 64)
-            ws = [w0] + [w0.clone() for _ in range(nw - 1)]
-            xb = bitpack.unpack_sign(a, k, torch.bfloat16)  # (E, ec, K)
-            wb = bitpack.unpack_sign(w0, k, torch.bfloat16).transpose(1, 2)
-            nl = copies_for(e * n * k * 2, 8)
-            wbs = [wb.contiguous()] + [wb.contiguous() for _ in range(nl - 1)]
-            del wb
-            lib_ms = graph_ms(torch.bmm, [(xb, w) for w in wbs], 2 * nl)
-            del wbs
-            row = {"bits": 1, "m": ec, "layer": "up/gate" if name == "gate"
-                   else name, "e": e, "n": n, "k": k, "copies": nw}
-            for kname, (kernel, plain) in fns.items():
-                row[kname] = dict(
-                    ms=graph_ms(kernel, [(a, w) for w in ws], 4 * nw),
-                    plain_ms=graph_ms(plain, [(a, w0)], plain_iters,
-                                      reps=plain_reps),
-                    library_ms=lib_ms,
-                    bytes=(e * n * kw + e * ec * kw + e * ec * n) * 4,
-                    ops_s=2 * e * ec * n * k / INT8_OPS_PER_S)
-            row["xnor_mismatch_batched"]["popc_bound_ms"] = (
-                e * ec * n * kw / popc_per_s * 1e3)
-            finish_row(row, MOE_KERNELS, f"timing MoE E={e} rows={ec} "
-                       f"{row['layer']} N={n} K={k}")
-            rows.append(row)
-            del ws, a, xb
+    for bits, names in ((1, MOE_KERNELS), (4, MOE_KBIT_KERNELS)):
+        for ec in (MOE_DECODE_EC, MOE_PREFILL_EC):
+            plain_iters, plain_reps = (2, 3) if ec == MOE_DECODE_EC else (1, 1)
+            for name, n, k in MOE_GEMMS[1:]:  # up has gate's shape: timed once
+                kw = (k + 31) // 32
+                a, w0, xb, wb = moe_operands(bits, e, ec, n, k, gen, dev)
+                nw = copies_for(bits * e * n * kw * 4, 64)
+                ws = [w0] + [w0.clone() for _ in range(nw - 1)]
+                nl = copies_for(e * n * k * 2, 8)
+                wbs = [wb.contiguous()] + [wb.contiguous()
+                                           for _ in range(nl - 1)]
+                del wb
+                lib_ms = graph_ms(torch.bmm, [(xb, w) for w in wbs], 2 * nl)
+                del wbs
+                row = {"bits": bits, "m": ec, "layer": "up/gate"
+                       if name == "gate" else name, "e": e, "n": n, "k": k,
+                       "copies": nw}
+                for kname in names:
+                    kernel, plain = fns[kname]
+                    row[kname] = dict(
+                        ms=graph_ms(kernel, [(a, w) for w in ws], 4 * nw),
+                        plain_ms=graph_ms(plain, [(a, w0)], plain_iters,
+                                          reps=plain_reps),
+                        library_ms=lib_ms,
+                        bytes=(bits * (e * n * kw + e * ec * kw)
+                               + e * ec * n) * 4,
+                        ops_s=2 * e * ec * n * k / INT8_OPS_PER_S)
+                row[names[0]]["popc_bound_ms"] = (
+                    bits * bits * e * ec * n * kw / popc_per_s * 1e3)
+                width = "1-bit" if bits == 1 else f"w{bits}a{bits}"
+                finish_row(row, names, f"timing MoE {width} E={e} rows={ec} "
+                           f"{row['layer']} N={n} K={k}")
+                rows.append(row)
+                del ws, a, xb
     totals = {}
-    for kname in MOE_KERNELS:
+    for kname in MOE_KERNELS + MOE_KBIT_KERNELS:
         # one decode step of one MoE layer: up + gate (one row, twice) + down
         rs = [(2 if r["layer"] == "up/gate" else 1, r[kname]) for r in rows
-              if r["m"] == MOE_DECODE_EC]
+              if r["m"] == MOE_DECODE_EC and kname in r]
         t_bytes = sum(c * r["bytes"] for c, r in rs) / HBM_BYTES_PER_S
         t_ops = sum(c * r["ops_s"] for c, r in rs)
         totals[kname] = dict(
@@ -1006,25 +1179,6 @@ def serving_moe(dev) -> tuple[dict, dict]:
     prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
                for n in PROMPT_LENS]
 
-    def gate_launches(runs, launches, tag, n_layers):
-        n_moe = n_layers - cfg.first_dense_layers
-        for label, ls in launches.items():
-            be = "xla" if label.startswith("fake") else label.split("-")[1]
-            calls = 3 * n_moe * (runs[label]["steps"] + runs[label]["prefills"])
-            want = {"xnor_mismatch_batched": calls if be == "vpu" else 0,
-                    "xnor_dot_mxu_batched": calls if be == "mxu" else 0}
-            got = {k: ls[k] for k in want}
-            packed = label.startswith("packed")
-            if (got != want or (ls["pack_sign"] > 0) != packed
-                    or (not packed and any(ls.values()))):
-                raise AssertionError(f"MoE {tag}{label}: launches {ls}, "
-                                     f"expected {want}")
-
-    def same(runs, a, b):
-        return all(np.array_equal(runs[a]["results"][r],
-                                  runs[b]["results"][r])
-                   for r in runs[b]["results"])
-
     # full depth, packed only
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1048,8 +1202,9 @@ def serving_moe(dev) -> tuple[dict, dict]:
         spec, cfg, binary, (("packed-vpu", packed, "vpu"),
                             ("packed-mxu", packed, "mxu")), prompts, "MoE ",
         ref_label="packed-vpu", profile=("packed-vpu",))
-    gate_launches(runs, launches, "", cfg.n_layers)
-    if not same(runs, "packed-mxu", "packed-vpu"):
+    gate_moe_launches(runs, launches, "",
+                      cfg.n_layers - cfg.first_dense_layers, 1)
+    if not same_streams(runs, "packed-mxu", "packed-vpu"):
         raise AssertionError("MoE full depth: packed-vpu and packed-mxu "
                              "greedy streams differ")
     print(f"serving MoE: {cfg.n_layers} layers, packed-vpu and packed-mxu "
@@ -1071,9 +1226,10 @@ def serving_moe(dev) -> tuple[dict, dict]:
                              ("packed-vpu-again", packed4, "vpu"),
                              ("packed-vpu-1-slot", packed4, "vpu", 1)),
         prompts, f"MoE depth {MOE_CUT_DEPTH} ", profile=())
-    gate_launches(runs4, launches4, f"depth {MOE_CUT_DEPTH} ", MOE_CUT_DEPTH)
+    gate_moe_launches(runs4, launches4, f"depth {MOE_CUT_DEPTH} ",
+                      MOE_CUT_DEPTH - cfg.first_dense_layers, 1)
     for label in ("packed-vpu", "packed-mxu", "packed-vpu-again"):
-        if not same(runs4, label, "fake-quant"):
+        if not same_streams(runs4, label, "fake-quant"):
             raise AssertionError(f"§2.2.2 violated (MoE depth "
                                  f"{MOE_CUT_DEPTH}): {label} != fake-quant")
     agree, total, first = stream_agreement(
@@ -1101,6 +1257,240 @@ def serving_moe(dev) -> tuple[dict, dict]:
                    launches={"full depth": launches,
                              f"depth {MOE_CUT_DEPTH}": launches4})
     return main_launches, summary
+
+
+def gate_moe_launches(runs, launches, tag: str, n_moe: int, bits: int):
+    """The MoE cells' launch gates: the expert-batched kernel of each
+    packed run's family (K7 / K8 at 1 bit, K9 / K10 at k bits) launches
+    3 x MoE layers x (decode steps + prefill calls) times and the other
+    batched kernels never; the width's prologue (K1 / K4) runs on every
+    packed run, and the other width's prologue never; fake-quant launches
+    nothing."""
+    prologue, other = (("pack_sign", "quant_pack_planes") if bits == 1
+                       else ("quant_pack_planes", "pack_sign"))
+    batched = MOE_BATCHED[bits]
+    absent = [k for b, ks in MOE_BATCHED.items() if b != bits
+              for k in ks.values()] + [other]
+    for label, ls in launches.items():
+        fam = "xla" if label.startswith("fake") else label.split("-")[1]
+        calls = 3 * n_moe * (runs[label]["steps"] + runs[label]["prefills"])
+        want = {k: calls if fam == f else 0 for f, k in batched.items()}
+        got = {k: ls[k] for k in want}
+        packed = label.startswith("packed")
+        if (got != want or (ls[prologue] > 0) != packed
+                or any(ls[k] for k in absent)
+                or (not packed and any(ls.values()))):
+            raise AssertionError(f"MoE {tag}{label}: launches {ls}, "
+                                 f"expected {want}")
+
+
+def same_streams(runs, a: str, b: str) -> bool:
+    return all(np.array_equal(runs[a]["results"][r], runs[b]["results"][r])
+               for r in runs[b]["results"])
+
+
+def serving_moe_kbit(dev) -> tuple[dict, dict]:
+    """The MoE w4a4 cell: deepseek-moe-16b at full width (as
+    :func:`serving_moe`), DoReFa ``QuantPolicy.quantized(4)``, float32
+    compute, the granite request mix on 4 slots of a 256-row contiguous
+    cache.  Runs, each with its kernel counts set to 0 just before it:
+
+    - all 28 layers, built layer by layer (7.5 GB of expert planes),
+      packed ``vpu`` (-> ``vpu-k4``: K4, K5 on attention / shared experts /
+      layer 0, K9 on the routed experts) and ``mxu`` (-> ``mxu-k4``: K4,
+      K6, K10): their greedy streams must be identical (the same integer
+      S, the same dequant);
+    - depth 4 (layer 0 + 3 MoE layers): packed ``vpu``, ``mxu`` (identical
+      streams, gated) and fake-quant, whose agreement with the packed
+      streams is reported, not gated (the k-bit contract is fp32-allclose
+      per GEMM);
+    - layer 1's up / gate / down grouped GEMMs on the routed rows of one
+      fake-quant prefill: packed ``vpu`` and ``mxu`` against the fake-quant
+      ``ragged_dot`` outputs within ``rtol=1e-4, atol=2e-4``.
+
+    Launch gates (:func:`gate_moe_launches`): K9 == 3 x MoE layers x
+    (decode steps + prefills) on the ``vpu`` runs and 0 elsewhere, K10
+    likewise on ``mxu``, K4 on every packed run, K5 on ``vpu`` and K6 on
+    ``mxu`` only, nothing on fake-quant.  Returns (K9 / K10 launches of the
+    full-depth runs, summary)."""
+    import dataclasses
+
+    from repro_torch.core import converter
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.kernels.dispatch import GemmConfig
+    from repro_torch.launch.serve import stream_agreement
+    from repro_torch.models import lm, registry
+    from repro_torch.nn.common import QCtx
+
+    spec = registry.get(MOE_ARCH)
+    cfg = spec.config
+    w4a4 = QuantPolicy.quantized(4)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in PROMPT_LENS]
+
+    def gate(runs, launches, tag, n_layers):
+        gate_moe_launches(runs, launches, tag,
+                          n_layers - cfg.first_dense_layers, 4)
+        for label, ls in launches.items():
+            fam = label.split("-")[1] if label.startswith("packed") else None
+            dense = {"vpu": ("kbit_plane_gemm", "kbit_mxu_gemm"),
+                     "mxu": ("kbit_mxu_gemm", "kbit_plane_gemm")}.get(fam)
+            if dense and not (ls[dense[0]] > 0 and ls[dense[1]] == 0):
+                raise AssertionError(f"MoE w4a4 {tag}{label}: dense k-bit "
+                                     f"launches {ls}")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    packed, fp32_bytes, packed_bytes = moe_packed_model(cfg, dev, w4a4)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated() / 1e9
+    expert_gb = 4 * sum(
+        w.numel() for layer in packed["layers"] if "moe" in layer
+        for w in layer["moe"]["experts"].values()) / 1e9
+    print(f"serving MoE w4a4: {MOE_ARCH} full width, all {cfg.n_layers} "
+          f"layers, built layer by layer in {build_s:.3f}s: fp32 "
+          f"{fp32_bytes / 1e9:.3f} GB -> w4a4 packed {packed_bytes / 1e9:.3f} "
+          f"GB ({expert_gb:.3f} GB of expert planes); peak memory while "
+          f"building {build_peak:.3f} GB")
+    ctx = QCtx(policy=w4a4, compute_dtype=torch.float32,
+               gemm_config=GemmConfig(backend="vpu"))
+    with torch.inference_mode():
+        logits, _ = lm.prefill(packed, cfg, ctx, prefill_tokens(prompts, dev),
+                               CACHE_LEN)
+    if logits.shape != (1, 1, cfg.padded_vocab) or not torch.isfinite(
+            logits).all():
+        raise AssertionError(f"MoE w4a4: bad prefill logits "
+                             f"{tuple(logits.shape)}")
+    runs, launches = serve_mix(
+        spec, cfg, w4a4, (("packed-vpu", packed, "vpu"),
+                          ("packed-mxu", packed, "mxu")), prompts,
+        "MoE w4a4 ", ref_label="packed-vpu", profile=("packed-vpu",))
+    gate(runs, launches, "", cfg.n_layers)
+    if not same_streams(runs, "packed-mxu", "packed-vpu"):
+        raise AssertionError("MoE w4a4 full depth: packed-vpu and packed-mxu "
+                             "greedy streams differ")
+    print(f"serving MoE w4a4: {cfg.n_layers} layers, packed-vpu and "
+          f"packed-mxu greedy streams identical; K9 "
+          f"{launches['packed-vpu']['kbit_plane_gemm_batched']} and K10 "
+          f"{launches['packed-mxu']['kbit_mxu_gemm_batched']} launches = 3 x "
+          f"{cfg.n_layers - cfg.first_dense_layers} MoE layers x (decode "
+          f"steps + prefills)")
+    del packed, logits
+    torch.cuda.empty_cache()
+
+    # depth 4: the fake-quant oracle at full width
+    cfg4 = dataclasses.replace(cfg, n_layers=MOE_CUT_DEPTH)
+    params = lm.init(torch.Generator(device=dev).manual_seed(SEED), cfg4)
+    packed4, report = converter.convert(params, w4a4)
+    print(f"serving MoE w4a4 depth {MOE_CUT_DEPTH}: {report.summary()}")
+    layer1 = moe_layer1_gemms(cfg4, params, packed4, prompts, dev)
+    runs4, launches4 = serve_mix(
+        spec, cfg4, w4a4, (("packed-vpu", packed4, "vpu"),
+                           ("packed-mxu", packed4, "mxu"),
+                           ("fake-quant", params, "vpu")), prompts,
+        f"MoE w4a4 depth {MOE_CUT_DEPTH} ", ref_label="packed-vpu",
+        profile=())
+    gate(runs4, launches4, f"depth {MOE_CUT_DEPTH} ", MOE_CUT_DEPTH)
+    if not same_streams(runs4, "packed-mxu", "packed-vpu"):
+        raise AssertionError(f"MoE w4a4 depth {MOE_CUT_DEPTH}: packed-vpu and "
+                             "packed-mxu greedy streams differ")
+    agreement = {}
+    for label in ("packed-vpu", "packed-mxu"):
+        agree, total, first = stream_agreement(
+            runs4[label]["results"], runs4["fake-quant"]["results"])
+        agreement[label] = dict(tokens_agree=agree, tokens=total,
+                                first_difference=first)
+    print(f"serving MoE w4a4 depth {MOE_CUT_DEPTH}: packed-vpu and packed-mxu "
+          f"greedy streams identical; against fake-quant (measured, not "
+          f"gated): {agreement}")
+    del params, packed4
+    torch.cuda.empty_cache()
+    main_launches = {
+        "kbit_plane_gemm_batched":
+            launches["packed-vpu"]["kbit_plane_gemm_batched"],
+        "kbit_mxu_gemm_batched":
+            launches["packed-mxu"]["kbit_mxu_gemm_batched"]}
+    summary = {f"{tag}{k}": {kk: vv for kk, vv in v.items()
+                             if kk != "results"}
+               for tag, rs in (("full depth ", runs),
+                               (f"depth {MOE_CUT_DEPTH} ", runs4))
+               for k, v in rs.items()}
+    summary.update(model_fp32_gb=fp32_bytes / 1e9,
+                   model_packed_gb=packed_bytes / 1e9,
+                   expert_planes_gb=expert_gb, build_seconds=build_s,
+                   build_peak_memory_gb=build_peak,
+                   agreement_with_fake_quant=agreement,
+                   layer1_packed_vs_fake_quant=layer1,
+                   launches={"full depth": launches,
+                             f"depth {MOE_CUT_DEPTH}": launches4})
+    return main_launches, summary
+
+
+def moe_layer1_gemms(cfg, params, packed, prompts, dev) -> dict:
+    """Layer 1's (the first MoE layer's) up / gate / down grouped GEMMs on
+    the routed rows of one fake-quant prefill (the mix's longest prompt):
+    the inputs and outputs of the fake-quant ``ragged_dot`` calls are
+    recorded, and packed ``quant_gemm_grouped`` (``vpu`` -> K9, ``mxu`` ->
+    K10) on the converted layer-1 stacks must give the same outputs within
+    ``rtol=1e-4, atol=2e-4``."""
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.dispatch import GemmConfig
+    from repro_torch.models import lm
+    from repro_torch.nn.common import QCtx
+
+    seen = []
+    ragged = dispatch.ragged_dot
+
+    def recording(x, w, group_sizes):
+        y = ragged(x, w, group_sizes)
+        if len(seen) < 3:  # layer 0 is dense: the first three are layer 1's
+            seen.append((x.clone(), group_sizes.clone(), y.clone()))
+        return y
+
+    ctx = QCtx(policy=QuantPolicy.quantized(4), compute_dtype=torch.float32,
+               gemm_config=GemmConfig(backend="vpu"))
+    dispatch.ragged_dot = recording
+    try:
+        with torch.inference_mode():
+            lm.prefill(params, cfg, ctx, prefill_tokens(prompts, dev),
+                       CACHE_LEN)
+    finally:
+        dispatch.ragged_dot = ragged
+    experts = packed["layers"][1]["moe"]["experts"]
+    names = ("up", "gate", "down")
+    d, f = cfg.d_model, cfg.moe.d_expert
+    if len(seen) != 3 or [x.shape[1] for x, _, _ in seen] != [d, d, f]:
+        raise AssertionError(f"layer 1 grouped GEMMs seen: "
+                             f"{[tuple(x.shape) for x, _, _ in seen]}")
+    out = {}
+    for (x, gs, want), name in zip(seen, names):
+        for backend in ("vpu", "mxu"):
+            with torch.inference_mode():
+                got = dispatch.quant_gemm_grouped(
+                    x, experts[f"{name}_packed"], gs, k_true=x.shape[1],
+                    config=GemmConfig(backend=backend), w_bits=4, a_bits=4)
+            diff = (got - want).abs()
+            limit = KBIT_TOL["atol"] + KBIT_TOL["rtol"] * want.abs()
+            key = f"{name} {backend}"
+            out[key] = dict(max_abs_err=float(diff.max()),
+                            worst_over_limit=float((diff / limit).max()),
+                            rows=int(x.shape[0]),
+                            experts_used=int((gs > 0).sum()))
+            if not bool((diff <= limit).all()):
+                raise AssertionError(f"layer 1 {key}: packed != fake-quant "
+                                     f"within {KBIT_TOL}: {out[key]}")
+    worst = max(v["worst_over_limit"] for v in out.values())
+    print(f"layer 1 (MoE) w4a4: {len(out)} packed grouped GEMM outputs (up/"
+          f"gate/down x vpu/mxu, {seen[0][0].shape[0]} routed rows of a "
+          f"{max(PROMPT_LENS)}-token prefill over "
+          f"{out['up vpu']['experts_used']} experts) within {KBIT_TOL} of "
+          f"fake-quant ragged_dot; largest |err| / limit {worst:.4f}; max "
+          f"|err| {max(v['max_abs_err'] for v in out.values()):.3e}")
+    return out
 
 
 def serving(dev) -> tuple[dict, dict]:
@@ -1653,6 +2043,7 @@ def main() -> int:
     err.update(parity_kbit(dev))
     err["flash_decode"] = parity_attn(dev)
     err.update(parity_moe(dev))
+    err.update(parity_moe_kbit(dev))
     print(f"parity phase {time.perf_counter() - t0:.3f}s")
     t0 = time.perf_counter()
     totals, rows = timing(dev, popc_per_s)
@@ -1673,6 +2064,11 @@ def main() -> int:
     launches.update(moe_launches)
     serve_summary["MoE cell"] = moe_summary
     print(f"MoE serving phase {time.perf_counter() - t0:.3f}s")
+    t0 = time.perf_counter()
+    kbit_launches, kbit_summary = serving_moe_kbit(dev)
+    launches.update(kbit_launches)
+    serve_summary["MoE w4a4 cell"] = kbit_summary
+    print(f"MoE w4a4 serving phase {time.perf_counter() - t0:.3f}s")
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -1689,7 +2085,7 @@ def main() -> int:
         "device": nvidia_smi("name,power.limit"), "timing_rows": rows,
         "moe_timing_rows": moe_rows, "attention_timing_rows": attn_rows,
         "kernel_totals_decode_layer (K4-K6 at w4a4, K11 fp32 pool, K7/K8 "
-        "one MoE layer)": totals,
+        "and K9/K10 (w4a4) one MoE layer)": totals,
         "serving": serve_summary,
         "launches": launches}, indent=1))
     print(json.dumps({"kernels": kernels}))

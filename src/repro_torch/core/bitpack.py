@@ -59,11 +59,17 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
 
 
 def unpack_bits(words: torch.Tensor, k_true: int) -> torch.Tensor:
-    """Inverse of :func:`pack_bits`; returns bool ``(..., k_true)``."""
-    shifts = torch.arange(WORD_BITS, dtype=torch.int64, device=words.device)
-    bits = (to_uint_words(words)[..., None] >> shifts) & 1
-    *lead, kw, _ = bits.shape
-    return bits.reshape(*lead, kw * WORD_BITS)[..., :k_true].to(torch.bool)
+    """Inverse of :func:`pack_bits`; returns bool ``(..., k_true)``.  The
+    words' bytes, least significant first (the little-endian layout of
+    every CPU and GPU PyTorch runs on), index a 256-entry table of their 8
+    bits: one pass and no int64 bit tensor, which the plain versions of
+    the expert-batched kernels need at 64 experts' planes per call."""
+    dev = words.device
+    table = ((torch.arange(256, device=dev)[:, None]
+              >> torch.arange(8, device=dev)) & 1).to(torch.bool)
+    bits = table[words.contiguous().view(torch.uint8).to(torch.int64)]
+    *lead, kw = words.shape
+    return bits.reshape(*lead, kw * WORD_BITS)[..., :k_true]
 
 
 def pack_sign(x: torch.Tensor) -> torch.Tensor:

@@ -14,8 +14,9 @@ the paper's accounting (k/32 of the fp32 bytes at k bits).
 
 MoE expert stacks (a dict of ``up`` / ``gate`` / ``down`` tensors of shape
 ``(E, d_in, d_out)``) pack per expert along ``d_in`` into ``{name}_packed``
-``(E, d_out, Kw)`` sign words at 1 bit; their k-bit plane stacks come with
-slice 4b, and conv weights with slice 5.
+``(E, d_out, Kw)`` sign words at 1 bit, or ``(E, w_bits, d_out, Kw)`` plane
+stacks of the DoReFa codes of the whole stack at k bits.  Conv weights come
+with slice 5.
 """
 
 from __future__ import annotations
@@ -125,14 +126,20 @@ def convert(params: Pytree, policy: QuantPolicy, *,
 def _pack_experts(node, path, spec: QuantSpec, report: SizeReport,
                   keep_float: bool):
     """MoE expert stack: each ``(E, d_in, d_out)`` tensor -> ``(E, d_out,
-    Kw)`` sign words, packed per expert along the contraction axis."""
-    if not spec.is_binary:
-        raise NotImplementedError(
-            f"{path}: k-bit expert plane stacks (w{spec.w_bits}a{spec.a_bits})"
-            " come with slice 4b of the port")
+    Kw)`` sign words at 1 bit, or an ``(E, w_bits, d_out, Kw)`` plane stack
+    at k bits, packed per expert along the contraction axis.  The k-bit
+    codes are taken over the whole stack: the DoReFa weight transform
+    normalises by the tensor's global tanh-max, as the fake-quant path does
+    (per-expert codes would drift from it)."""
     out = {}
     for name, w in node.items():  # up / gate / down
-        w_packed = bitpack.pack_sign(w.to(torch.float32).transpose(1, 2))
+        flat = w.to(torch.float32).transpose(1, 2)  # (E, d_out, d_in)
+        if spec.is_binary:
+            w_packed = bitpack.pack_sign(flat)
+        else:
+            codes = quant.weight_codes(flat, spec.w_bits)
+            w_packed = bitpack.pack_planes(codes, spec.w_bits).transpose(
+                0, 1).contiguous()
         out[name + "_packed"] = w_packed
         if keep_float:
             out[name] = w

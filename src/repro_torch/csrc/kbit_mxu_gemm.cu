@@ -1,11 +1,17 @@
 // k-bit GEMM on the tensor cores: (ka, M, Kw) x (kb, N, Kw) 32-bit plane
 // words -> (M, N) int32 S = sum_k n_a[m, k] * n_w[n, k], the integer dot of
 // the DoReFa codes n = sum_i 2^i * plane_i — the same S as
-// kbit_plane_gemm.cu, bit for bit.
+// kbit_plane_gemm.cu, bit for bit.  The expert-batched form runs the same
+// tile over a leading expert axis: (E, ka, M, Kw) x (E, kb, N, Kw) ->
+// (E, M, N), one expert per blockIdx.z — the same S as
+// repro_kbit_plane_gemm_batched, bit for bit.
 //
 // Replaces: src/repro/kernels/kbit_mxu.py, kbit_mxu_gemm_pallas
 // (_mxu_kbit_kernel, _unpack_codes_i8, _offset_dot, _restore_s), the
-// mxu-k2/k4/k8 backends.
+// mxu-k2/k4/k8 backends (repro_kbit_mxu_gemm); and
+// kbit_mxu_gemm_batched_pallas (_mxu_kbit_kernel_batched and its
+// _restore_s), the MoE expert buckets of the mxu-k2/k4/k8 backends
+// (repro_kbit_mxu_gemm_batched).
 //
 // Bound on the H100: at decode (M = batch <= 8) bytes — the kb weight planes
 // are read once; at prefill M the int8 tensor cores (2*M*N*K ops).  Design:
@@ -24,6 +30,10 @@
 // code 0, which adds nothing.  One int32 partial per output accumulates the
 // whole code dot, at most K*Na*Nw, which dispatch bounds by 2*K*Na*Nw < 2^31.
 // Rows are padded by 16 bytes so the fragment loads of a warp hit 32 banks.
+// The batched kernel offsets the operands and the output by its expert's
+// strides (64-bit, as in kbit_plane_gemm.cu) and runs the same tile; like
+// the 2-D form it needs neither the TPU's offset nor its per-expert rank-1
+// restore, since the u8 codes go into the mma as they are.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -60,10 +70,12 @@ __device__ __forceinline__ void mma_u8(int (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__global__ void __launch_bounds__(kThreads)
-kbit_mxu_gemm_kernel(const uint32_t* __restrict__ a,
-                     const uint32_t* __restrict__ b, int32_t* __restrict__ out,
-                     long long m, long long n, long long kw, int ka, int kb) {
+// One 16 x 64 output tile of one (ka, M, Kw) x (kb, N, Kw) product.
+__device__ __forceinline__ void code_tile(const uint32_t* __restrict__ a,
+                                          const uint32_t* __restrict__ b,
+                                          int32_t* __restrict__ out,
+                                          long long m, long long n,
+                                          long long kw, int ka, int kb) {
   __shared__ __align__(16) uint8_t sa[kBM][kLds];
   __shared__ __align__(16) uint8_t sb[kBN][kLds];
   const int tid = threadIdx.x;
@@ -133,6 +145,24 @@ kbit_mxu_gemm_kernel(const uint32_t* __restrict__ a,
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+kbit_mxu_gemm_kernel(const uint32_t* __restrict__ a,
+                     const uint32_t* __restrict__ b, int32_t* __restrict__ out,
+                     long long m, long long n, long long kw, int ka, int kb) {
+  code_tile(a, b, out, m, n, kw, ka, kb);
+}
+
+// blockIdx.z = expert: its (ka, M, Kw), (kb, N, Kw) and (M, N) slabs.
+__global__ void __launch_bounds__(kThreads)
+kbit_mxu_gemm_batched_kernel(const uint32_t* __restrict__ a,
+                             const uint32_t* __restrict__ b,
+                             int32_t* __restrict__ out, long long m,
+                             long long n, long long kw, int ka, int kb) {
+  const long long e = blockIdx.z;
+  code_tile(a + e * ka * m * kw, b + e * kb * n * kw, out + e * m * n, m, n,
+            kw, ka, kb);
+}
+
 }  // namespace
 
 extern "C" int repro_kbit_mxu_gemm(const int32_t* a, const int32_t* b,
@@ -144,6 +174,22 @@ extern "C" int repro_kbit_mxu_gemm(const int32_t* a, const int32_t* b,
   const dim3 grid(static_cast<unsigned>((n + kBN - 1) / kBN),
                   static_cast<unsigned>((m + kBM - 1) / kBM));
   kbit_mxu_gemm_kernel<<<grid, kThreads, 0, stream>>>(
+      reinterpret_cast<const uint32_t*>(a), reinterpret_cast<const uint32_t*>(b),
+      out, m, n, kw, ka, kb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int repro_kbit_mxu_gemm_batched(const int32_t* a, const int32_t* b,
+                                           int32_t* out, long long e,
+                                           long long m, long long n,
+                                           long long kw, int ka, int kb,
+                                           cudaStream_t stream) {
+  if (ka < 1 || ka > kMaxPlanes || kb < 1 || kb > kMaxPlanes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>((n + kBN - 1) / kBN),
+                  static_cast<unsigned>((m + kBM - 1) / kBM),
+                  static_cast<unsigned>(e));
+  kbit_mxu_gemm_batched_kernel<<<grid, kThreads, 0, stream>>>(
       reinterpret_cast<const uint32_t*>(a), reinterpret_cast<const uint32_t*>(b),
       out, m, n, kw, ka, kb);
   return static_cast<int>(cudaGetLastError());

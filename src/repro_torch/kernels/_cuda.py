@@ -49,6 +49,9 @@ _PROTOTYPES = {
     "repro_quant_pack_planes": 3 * [_PTRS] + 3 * [_DIMS] + [_INT],
     "repro_kbit_plane_gemm": 3 * [_PTRS] + 3 * [_DIMS] + 2 * [_INT],
     "repro_kbit_mxu_gemm": 3 * [_PTRS] + 3 * [_DIMS] + 2 * [_INT],
+    # the expert-batched forms: (a, b, out, e, m, n, kw, ka, kb)
+    "repro_kbit_plane_gemm_batched": 3 * [_PTRS] + 4 * [_DIMS] + 2 * [_INT],
+    "repro_kbit_mxu_gemm_batched": 3 * [_PTRS] + 4 * [_DIMS] + 2 * [_INT],
     # (table, q, q_pos, pool_k, pool_v, k_scale, v_scale, pool_pos, out,
     #  b, c, kvh, g, dh, nb, bs, bps, kind, sm_scale, cap, causal, window)
     "repro_flash_decode": 9 * [_PTRS] + 8 * [_DIMS] + [_INT] + 2 * [_FLOAT]

@@ -22,9 +22,9 @@ It owns the four concerns of the JAX module:
                 packed weights      ``torch.matmul`` (no kernel;
                                     :func:`ragged_dot` grouped)
    ``vpu-kN``   N-bit plane stacks  AND+popcount per plane pair     pack_planes
-                (N = 2, 4, 8)       (K5)
+                (N = 2, 4, 8)       (K5; K9 batched)
    ``mxu-kN``   N-bit plane stacks  u8 code lanes, one ``mma``      pack_planes
-                                    (K6)
+                                    (K6; K10 batched)
    ===========  ==================  ==============================  =========
 
    Base names resolve per layer by weight width: ``vpu`` at 4 bits runs
@@ -46,15 +46,18 @@ divide, so the two packages give the same bits.
 
 The grouped (MoE) entry point :func:`quant_gemm_grouped` runs the same
 prologue once over the expert-sorted rows, scatters the packed words into
-dense per-expert buckets ``(E, capacity, Kw)`` on the device (no host
-sync), and contracts them against the ``(E, N, Kw)`` packed expert stacks
-on the expert-batched kernels (``vpu`` K7, ``mxu`` K8); ``xla`` takes the
-float rows to :func:`ragged_dot` over the unpacked stacks.
+dense per-expert buckets on the device (no host sync), and contracts them
+on the expert-batched kernels: at 1 bit ``(E, capacity, Kw)`` sign words
+against ``(E, N, Kw)`` stacks (``vpu`` K7, ``mxu`` K8); at k bits ``(E,
+a_bits, capacity, Kw)`` plane buckets against ``(E, w_bits, N, Kw)`` plane
+stacks (``vpu-kN`` K9, ``mxu-kN`` K10), dequantized with the per-row code
+sums as in the dense path.  ``xla`` takes the float rows to
+:func:`ragged_dot` over the unpacked (1 bit) or dequantized (k bits)
+stacks.
 
 Not carried over: the TPU tile table, ``select_tiles`` and its autotune
-cache (each CUDA kernel picks its own tiles); the k-bit grouped arm (plane
-stacks per expert, K9/K10: slice 4b); the ``shard-*`` family and the
-expert-parallel grouped layout (slice 6).
+cache (each CUDA kernel picks its own tiles); the ``shard-*`` family and
+the expert-parallel grouped layout (slice 6).
 """
 
 from __future__ import annotations
@@ -67,8 +70,10 @@ import torch
 
 from repro_torch.core import bitpack, quant
 from repro_torch.core.policy import QuantSpec
-from repro_torch.kernels.kbit_gemm import kbit_plane_gemm
-from repro_torch.kernels.kbit_mxu import kbit_mxu_gemm, kbit_mxu_gemm_plain
+from repro_torch.kernels.kbit_gemm import (kbit_plane_gemm,
+                                           kbit_plane_gemm_batched)
+from repro_torch.kernels.kbit_mxu import (kbit_mxu_gemm, kbit_mxu_gemm_batched,
+                                          kbit_mxu_gemm_plain)
 from repro_torch.kernels.pack_bits import (pack_sign, quant_pack_planes,
                                            quant_pack_planes_plain)
 from repro_torch.kernels.xnor_gemm import (mxu_pad_inflation, xnor_dot_mxu,
@@ -179,7 +184,12 @@ class Backend:
     (E, capacity, N) int32`` returns the exact ±1 dots of packed
     ``(E, capacity, Kw)`` buckets against ``(E, N, Kw)`` packed stacks;
     ``from_float_grouped(x_sorted, w_stack, group_sizes, k_true)`` is the
-    float-activation shortcut (``xla``).
+    float-activation shortcut (``xla``).  At k bits
+    ``gemm_kbit_grouped(buckets, w_stack) -> (E, capacity, N) int32`` is
+    the raw S of ``(E, a_bits, capacity, Kw)`` plane buckets against
+    ``(E, w_bits, N, Kw)`` plane stacks, and ``from_float_kbit_grouped(
+    x_sorted, w_stack, group_sizes, a_bits, w_bits, k_true)`` the
+    fake-quant DoReFa dots straight from float rows (``xla``).
 
     ``prologue`` declares how float operands are prepared (a
     :class:`PrologueSpec` kind)."""
@@ -193,6 +203,8 @@ class Backend:
     prologue: str = "pack_sign"
     gemm_grouped: Callable | None = None
     from_float_grouped: Callable | None = None
+    gemm_kbit_grouped: Callable | None = None
+    from_float_kbit_grouped: Callable | None = None
 
 
 def _vpu_gemm(ap, bp, k_true):
@@ -263,8 +275,10 @@ def _xla_from_float_grouped(x_sorted, w_stack, group_sizes, k_true):
 
 
 def _dequant_weight_planes(w_planes, k_true, w_bits):
-    """(kb, N, Kw) plane stack -> (N, K) float32 DoReFa weight values."""
-    codes = bitpack.unpack_planes(w_planes, k_true).to(torch.float32)
+    """(…, kb, N, Kw) plane stack -> (…, N, K) float32 DoReFa weight
+    values."""
+    codes = bitpack.unpack_planes(torch.movedim(w_planes, -3, 0),
+                                  k_true).to(torch.float32)
     nw = float((1 << w_bits) - 1)
     return (2.0 * codes - nw) / nw
 
@@ -276,6 +290,16 @@ def _xla_kbit_from_float(x2, w_planes, a_bits, w_bits, k_true):
     wq = _dequant_weight_planes(w_planes, k_true, w_bits)  # (N, K)
     xq = quant.quantize_act(x2.to(torch.float32), a_bits)
     return xq @ wq.T
+
+
+def _xla_kbit_from_float_grouped(x_sorted, w_stack, group_sizes, a_bits,
+                                 w_bits, k_true):
+    """Grouped ``xla`` at k bits: the (E, w_bits, N, Kw) plane stack
+    dequantized to (E, K, N) float32 and :func:`ragged_dot` over the
+    quantized rows (the k-bit analogue of ``_xla_from_float_grouped``)."""
+    wq = _dequant_weight_planes(w_stack, k_true, w_bits)  # (E, N, K)
+    xq = quant.quantize_act(x_sorted.to(torch.float32), a_bits)
+    return ragged_dot(xq, wq.transpose(1, 2), group_sizes)
 
 
 def _kbit_only(*_args, **_kw):
@@ -307,11 +331,15 @@ register_backend(Backend("xla", _xla_gemm, from_float=_xla_from_float,
                          # the code-lane kernel's plain version
                          gemm_kbit=kbit_mxu_gemm_plain,
                          from_float_kbit=_xla_kbit_from_float,
+                         from_float_kbit_grouped=_xla_kbit_from_float_grouped,
                          prologue="float"))
-for _fam, _kernel in (("vpu", kbit_plane_gemm), ("mxu", kbit_mxu_gemm)):
+for _fam, _kernel, _grouped in (
+        ("vpu", kbit_plane_gemm, kbit_plane_gemm_batched),
+        ("mxu", kbit_mxu_gemm, kbit_mxu_gemm_batched)):
     for _k in (2, 4, 8):
         register_backend(Backend(f"{_fam}-k{_k}", _kbit_only, bits=_k,
-                                 gemm_kbit=_kernel, prologue="pack_planes"))
+                                 gemm_kbit=_kernel, gemm_kbit_grouped=_grouped,
+                                 prologue="pack_planes"))
 
 
 def _family(base: str) -> str:
@@ -572,7 +600,7 @@ class QuantGemmCall:
 
 def quant_gemm_grouped(
     x_sorted: torch.Tensor,  # (T, K) float rows, sorted by group
-    w_stack,  # (E, N, Kw) packed expert stack, or a tuple of them
+    w_stack,  # (E, N, Kw) words / (E, w_bits, N, Kw) planes, or a tuple
     group_sizes: torch.Tensor,  # (E,) int, sum <= T
     *,
     k_true: int,
@@ -591,40 +619,42 @@ def quant_gemm_grouped(
     no drops) are dropped (zeros) on every backend.
 
     ``w_stack`` may be a tuple of same-shape stacks (MoE up + gate): the
-    activations are binarized, packed and bucketed once and contracted
+    activations are quantized, packed and bucketed once and contracted
     against each stack, returning a tuple.
 
     ``vpu`` / ``mxu`` scatter the packed words into dense per-expert
     buckets ``(E, capacity, Kw)`` and run the expert-batched kernel (K7 /
     K8), so only packed words reach it; the dense bucket form computes
-    every bucket row, E-fold the ragged work at full capacity.  Group
-    sizes, bucket indices and the validity mask stay on the device: the
-    packed path reads nothing back to the host.  ``xla`` contracts the
-    float rows with :func:`ragged_dot` over the unpacked stacks."""
+    every bucket row, E-fold the ragged work at full capacity.  With
+    ``w_bits`` > 1 the same happens to DoReFa bit planes (``vpu-kN`` K9,
+    ``mxu-kN`` K10; see :func:`_kbit_grouped`).  Group sizes, bucket
+    indices and the validity mask stay on the device: the packed path reads
+    nothing back to the host.  ``xla`` contracts the float rows with
+    :func:`ragged_dot` over the unpacked or dequantized stacks."""
     stacks = w_stack if isinstance(w_stack, tuple) else (w_stack,)
     t, k = x_sorted.shape
     e = stacks[0].shape[0]
     if k != k_true:
         raise ValueError(f"x has K={k}, expected k_true={k_true}")
-    if (w_bits or 1) > 1 or (a_bits or 1) > 1:
-        raise NotImplementedError(
-            f"grouped k-bit GEMM (w{w_bits}a{a_bits}: per-expert plane "
-            "stacks on K9/K10) comes with slice 4b of the port")
-    if any(w.ndim != 3 or w.shape != stacks[0].shape for w in stacks):
-        raise ValueError(f"expert stacks must share one (E, N, Kw) shape: "
+    wb, ab = w_bits or 1, a_bits or 1
+    if wb > 1 or ab > 1:
+        _check_kbit_widths(wb, ab)
+    ndim, what = (4, f"(E, {wb}, N, Kw)") if wb > 1 else (3, "(E, N, Kw)")
+    if any(w.ndim != ndim or w.shape != stacks[0].shape
+           or (wb > 1 and w.shape[1] != wb) for w in stacks):
+        raise ValueError(f"expert stacks must share one {what} shape: "
                          f"{[tuple(w.shape) for w in stacks]}")
 
     ec = expert_capacity or t
     group_sizes = group_sizes.to(device=x_sorted.device, dtype=torch.int64)
-    ends = torch.cumsum(group_sizes, 0)
-    starts = ends - group_sizes
-    row = torch.arange(t, device=x_sorted.device)
-    g = torch.searchsorted(ends, row, right=True)
-    g_safe = g.clamp(max=e - 1)
-    pos = row - starts[g_safe]
-    valid = (g < e) & (pos < ec)
+    dest, cell, valid = _bucket_cells(group_sizes, t, ec)
 
     x_sorted = x_sorted.to(torch.float32).contiguous()
+    if wb > 1:
+        outs = _kbit_grouped(x_sorted, stacks, group_sizes, dest, cell, valid,
+                             ec=ec, k_true=k_true, config=config,
+                             out_dtype=out_dtype, w_bits=wb, a_bits=ab)
+        return outs if isinstance(w_stack, tuple) else outs[0]
     be = get_backend(resolve_backend(config.backend, 1))
     if be.from_float_grouped is not None:
         outs = tuple(
@@ -636,9 +666,7 @@ def quant_gemm_grouped(
     if be.gemm_grouped is None:
         raise ValueError(f"backend {be.name!r} has no grouped GEMM")
 
-    buckets = _pack_sign_buckets(x_sorted, g, pos, valid, e, ec,
-                                 config.fused_prologue)
-    cell = g_safe * ec + pos.clamp(max=ec - 1)  # each row's bucket cell
+    buckets = _pack_sign_buckets(x_sorted, dest, e, ec, config.fused_prologue)
     outs = []
     for w in stacks:
         dots = be.gemm_grouped(buckets, w, k_true)  # (E, ec, N)
@@ -647,7 +675,27 @@ def quant_gemm_grouped(
     return tuple(outs) if isinstance(w_stack, tuple) else outs[0]
 
 
-def _pack_sign_buckets(x_sorted, g, pos, valid, e, ec, fused):
+def _bucket_cells(group_sizes: torch.Tensor, t: int, ec: int):
+    """Where each of the ``t`` expert-sorted rows goes, on the device: row
+    ``i`` is position ``pos`` of group ``g`` (the groups are contiguous runs
+    of ``group_sizes``), valid when ``g < E`` (not past the sizes' sum) and
+    ``pos < ec`` (not dropped by the capacity).  Returns ``(dest, cell,
+    valid)``: the flat bucket cell ``g * ec + pos`` a row scatters to (the
+    extra cell ``E * ec``, cut off after the scatter, for invalid rows), the
+    cell it reads its result back from (clamped into the buckets; the
+    validity mask zeroes what invalid rows read) and the mask."""
+    e = group_sizes.numel()
+    ends = torch.cumsum(group_sizes, 0)
+    row = torch.arange(t, device=group_sizes.device)
+    g = torch.searchsorted(ends, row, right=True)
+    g_safe = g.clamp(max=e - 1)
+    pos = row - (ends - group_sizes)[g_safe]
+    valid = (g < e) & (pos < ec)
+    return (torch.where(valid, g * ec + pos, e * ec),
+            g_safe * ec + pos.clamp(max=ec - 1), valid)
+
+
+def _pack_sign_buckets(x_sorted, dest, e, ec, fused):
     """The grouped 1-bit prologue: route rows into (E, capacity, Kw) packed
     buckets.  When the capacity bound shrinks the bucket total below the
     row count (E * ec < T, a tight ``expert_capacity``), the float rows are
@@ -655,9 +703,9 @@ def _pack_sign_buckets(x_sorted, g, pos, valid, e, ec, fused):
     rows dropped by the capacity bound are never packed, and empty cells
     hold -1.0 (bit 0).  Otherwise the T rows pack once and the packed words
     scatter into zero buckets.  Invalid rows write to one extra cell that
-    is cut off, so the scatter needs no host-side count."""
+    is cut off, so the scatter needs no host-side count (``dest``:
+    :func:`_bucket_cells`)."""
     t, k = x_sorted.shape
-    dest = torch.where(valid, g * ec + pos, e * ec)
     if e * ec < t:
         xb = torch.full((e * ec + 1, k), -1.0, dtype=x_sorted.dtype,
                         device=x_sorted.device)
@@ -668,3 +716,64 @@ def _pack_sign_buckets(x_sorted, g, pos, valid, e, ec, fused):
                           device=xp.device)
     buckets[dest] = xp
     return buckets[:-1].reshape(e, ec, -1)
+
+
+def _pack_plane_buckets(x_sorted, a_bits, dest, cell, e, ec, fused):
+    """The grouped k-bit prologue: quantize + plane-pack, bucketed.  Returns
+    ((E, a_bits, capacity, Kw) int32 plane buckets, contiguous for the
+    kernel, and the (T, 1) int32 code sums of the rows).  The same
+    route-first rule as :func:`_pack_sign_buckets`: when E * ec < T the
+    float rows are routed first (slack rows are -1.0, code 0) and only the
+    bucket cells run through the prologue, and each row reads its cell's
+    code sum (dropped rows read a clamped cell; the validity mask zeroes
+    them); otherwise the T rows pack once and their planes scatter into
+    zero buckets (``dest``, ``cell``: :func:`_bucket_cells`)."""
+    t, k = x_sorted.shape
+    if e * ec < t:
+        xb = torch.full((e * ec + 1, k), -1.0, dtype=x_sorted.dtype,
+                        device=x_sorted.device)
+        xb[dest] = x_sorted
+        planes, ts = pack_act_planes(xb[:-1], a_bits, fused=fused)
+        buckets = planes.reshape(a_bits, e, ec, -1).transpose(0, 1)
+        return buckets.contiguous(), ts[cell]
+    planes, ts = pack_act_planes(x_sorted, a_bits, fused=fused)  # (ka, T, Kw)
+    kw = planes.shape[-1]
+    buckets = torch.zeros((e * ec + 1, a_bits, kw), dtype=planes.dtype,
+                          device=planes.device)
+    buckets[dest] = planes.transpose(0, 1)
+    return (buckets[:-1].reshape(e, ec, a_bits, kw).transpose(1, 2)
+            .contiguous(), ts)
+
+
+def _kbit_grouped(x_sorted, stacks, group_sizes, dest, cell, valid, *, ec,
+                  k_true, config, out_dtype, w_bits, a_bits):
+    """k-bit arm of :func:`quant_gemm_grouped`: the quantize -> plane-pack
+    prologue runs once (per bucket cell under a tight capacity, see
+    :func:`_pack_plane_buckets`), then each (E, w_bits, N, Kw) expert plane
+    stack contracts on the expert-batched kernel (K9 / K10) and every row's
+    S dequantizes with its code sum as in the dense path; ``xla`` (and
+    widths without a plane entry) goes to :func:`ragged_dot` over the
+    dequantized stacks.  The capacity / validity contract of the 1-bit arm.
+    Returns a tuple, one output per stack."""
+    e = stacks[0].shape[0]
+    name = resolve_backend(config.backend, w_bits)
+    be = get_backend(name)
+    if be.from_float_kbit_grouped is not None:
+        return tuple(
+            torch.where(valid[:, None],
+                        be.from_float_kbit_grouped(x_sorted, w, group_sizes,
+                                                   a_bits, w_bits, k_true),
+                        0.0).to(out_dtype)
+            for w in stacks)
+    if be.gemm_kbit_grouped is None:
+        raise ValueError(f"backend {name!r} has no grouped k-bit GEMM")
+    _accum_check_for(name)(k_true, a_bits, w_bits)
+    buckets, t_sum = _pack_plane_buckets(x_sorted, a_bits, dest, cell, e, ec,
+                                         config.fused_prologue)
+    outs = []
+    for w in stacks:
+        s = be.gemm_kbit_grouped(buckets, w)  # (E, ec, N)
+        dot = _kbit_dequant(s.reshape(e * ec, -1)[cell], t_sum, a_bits,
+                            w_bits)
+        outs.append(torch.where(valid[:, None], dot, 0.0).to(out_dtype))
+    return tuple(outs)

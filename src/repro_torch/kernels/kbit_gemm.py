@@ -19,14 +19,24 @@ On a CUDA tensor :func:`kbit_plane_gemm` launches the hand-written Hopper
 kernel (``csrc/kbit_plane_gemm.cu``: shared-memory plane-word tiles +
 ``__popc``) or raises; on a CPU tensor it runs
 :func:`kbit_plane_gemm_plain`, which repeats the kernel's integer algorithm
-in PyTorch ops (int64 SWAR popcount).  The expert-batched variant waits for
-slice 4.
+in PyTorch ops (int64 SWAR popcount).
+
+:func:`kbit_plane_gemm_batched` is the same function over a leading expert
+axis, ``(E, ka, M, Kw) x (E, kb, N, Kw) -> (E, M, N)`` — the MoE expert
+buckets of ``dispatch.quant_gemm_grouped`` at k bits (K9).  Its CUDA
+kernel is the 2-D tile with ``blockIdx.z`` = expert, in the same source
+under its own C entry point (so launch counts and profiler names tell it
+from K5).  Its plain version counts each plane pair's common set bits as
+an exact float32 ``bmm`` of the unpacked 0/1 planes (every partial sum is
+an integer below 2^24), which the serving shapes' ``ka*kb`` passes over
+64 experts need: the SWAR form would take seconds per call.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import bitpack
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.xnor_gemm import _PLAIN_CHUNK_WORDS, _popcount32
 
@@ -47,31 +57,61 @@ def kbit_plane_gemm_plain(a_planes: torch.Tensor,
     return acc.to(torch.int32)
 
 
-def check_planes(a_planes: torch.Tensor, b_planes: torch.Tensor) -> None:
-    """The operand checks both k-bit GEMM wrappers run."""
-    _cuda.require(a_planes, "a_planes", torch.int32, 3)
-    _cuda.require(b_planes, "b_planes", torch.int32, 3)
-    if a_planes.shape[2] != b_planes.shape[2]:
-        raise ValueError(f"Kw mismatch: {tuple(a_planes.shape)} vs "
-                         f"{tuple(b_planes.shape)}")
+def kbit_plane_gemm_batched_plain(a_planes: torch.Tensor,
+                                  b_planes: torch.Tensor) -> torch.Tensor:
+    """Plain version of the batched plane kernel: (E, ka, M, Kw) x (E, kb,
+    N, Kw) int32 words -> (E, M, N) int32, per expert
+    ``sum_{i,j} 2^(i+j) * popcount(A_i & B_j)``.  Each plane pair's popcount
+    summed over the words is the number of bit positions set in both rows:
+    a float32 ``bmm`` of the unpacked 0/1 planes, exact because every
+    partial sum is an integer below 2^24 (K <= 2^24)."""
+    k_all = a_planes.shape[-1] * bitpack.WORD_BITS
+    if k_all >= 2**24:
+        raise ValueError(f"Kw {a_planes.shape[-1]}: the float32 popcount is "
+                         "exact below 2^24 bits")
+    ua = [bitpack.unpack_bits(a_planes[:, i], k_all).to(torch.float32)
+          for i in range(a_planes.shape[1])]
+    acc = torch.zeros((a_planes.shape[0], a_planes.shape[2],
+                       b_planes.shape[2]), dtype=torch.int64,
+                      device=a_planes.device)
+    for j in range(b_planes.shape[1]):
+        ubt = bitpack.unpack_bits(b_planes[:, j], k_all).to(
+            torch.float32).transpose(1, 2)
+        for i, uai in enumerate(ua):
+            acc += torch.bmm(uai, ubt).to(torch.int64) << (i + j)
+    return acc.to(torch.int32)
+
+
+def check_planes(a_planes: torch.Tensor, b_planes: torch.Tensor,
+                 ndim: int = 3) -> None:
+    """The operand checks every k-bit GEMM wrapper runs: 2-D plane stacks
+    (``ndim`` 3) or expert-batched ones (4, the expert count first)."""
+    _cuda.require(a_planes, "a_planes", torch.int32, ndim)
+    _cuda.require(b_planes, "b_planes", torch.int32, ndim)
+    if (a_planes.shape[-1] != b_planes.shape[-1]
+            or a_planes.shape[:-3] != b_planes.shape[:-3]):
+        raise ValueError(f"Kw mismatch or expert counts differ: "
+                         f"{tuple(a_planes.shape)} vs {tuple(b_planes.shape)}")
     for name, t in (("a_planes", a_planes), ("b_planes", b_planes)):
-        if not 1 <= t.shape[0] <= 8:
-            raise ValueError(f"{name}: 1..8 planes, got {t.shape[0]}")
+        if not 1 <= t.shape[-3] <= 8:
+            raise ValueError(f"{name}: 1..8 planes, got {t.shape[-3]}")
 
 
 def launch_planes(name: str, a_planes: torch.Tensor,
                   b_planes: torch.Tensor) -> torch.Tensor:
     """Launch a k-bit GEMM kernel ``repro_<name>`` on checked CUDA operands
-    and count it."""
-    ka, m, kw = a_planes.shape
-    kb, n, _ = b_planes.shape
-    out = torch.empty((m, n), dtype=torch.int32, device=a_planes.device)
+    (2-D plane stacks, or expert stacks for the ``*_batched`` entry points,
+    which take the expert count first) and count it."""
+    *lead, ka, m, kw = a_planes.shape
+    kb, n, _ = b_planes.shape[-3:]
+    out = torch.empty((*lead, m, n), dtype=torch.int32,
+                      device=a_planes.device)
     if out.numel() == 0:
         return out
     with torch.cuda.device(a_planes.device):
         rc = getattr(_cuda.lib(), f"repro_{name}")(
-            a_planes.data_ptr(), b_planes.data_ptr(), out.data_ptr(), m, n, kw,
-            ka, kb, _cuda.stream_handle(a_planes.device))
+            a_planes.data_ptr(), b_planes.data_ptr(), out.data_ptr(), *lead,
+            m, n, kw, ka, kb, _cuda.stream_handle(a_planes.device))
     _cuda.check(rc, name)
     _cuda.LAUNCHES[name] += 1
     return out
@@ -85,3 +125,14 @@ def kbit_plane_gemm(a_planes: torch.Tensor,
     if _cuda.on_cpu(a_planes, b_planes):
         return kbit_plane_gemm_plain(a_planes, b_planes)
     return launch_planes("kbit_plane_gemm", a_planes, b_planes)
+
+
+def kbit_plane_gemm_batched(a_planes: torch.Tensor,
+                            b_planes: torch.Tensor) -> torch.Tensor:
+    """Expert-batched weighted plane popcount GEMM (K9): (E, ka, M, Kw)
+    activation buckets x (E, kb, N, Kw) expert plane stacks -> S (E, M, N)
+    int32."""
+    check_planes(a_planes, b_planes, 4)
+    if _cuda.on_cpu(a_planes, b_planes):
+        return kbit_plane_gemm_batched_plain(a_planes, b_planes)
+    return launch_planes("kbit_plane_gemm_batched", a_planes, b_planes)

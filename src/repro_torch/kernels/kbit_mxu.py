@@ -18,8 +18,14 @@ directly: there is no offset, no restore and no pad term, and absent words
 are code 0.  It equals :func:`kbit_gemm.kbit_plane_gemm` bit for bit.
 
 On a CUDA tensor :func:`kbit_mxu_gemm` launches the kernel (or raises); on
-a CPU tensor it runs :func:`kbit_mxu_gemm_plain`.  The expert-batched
-variant waits for slice 4.
+a CPU tensor it runs :func:`kbit_mxu_gemm_plain`.
+
+:func:`kbit_mxu_gemm_batched` is the same function over a leading expert
+axis, ``(E, ka, M, Kw) x (E, kb, N, Kw) -> (E, M, N)`` (K10, the MoE
+expert buckets of the ``mxu-k*`` backends): the 2-D tile with
+``blockIdx.z`` = expert under its own C entry point.  The TPU's batched
+kernel applies the rank-1 restore per expert; here, as in 2-D, the raw
+codes give S directly, equal to ``kbit_plane_gemm_batched`` bit for bit.
 """
 
 from __future__ import annotations
@@ -43,6 +49,25 @@ def kbit_mxu_gemm_plain(a_planes: torch.Tensor,
     return (ua @ ub.T).to(torch.int32)
 
 
+def kbit_mxu_gemm_batched_plain(a_planes: torch.Tensor,
+                                b_planes: torch.Tensor) -> torch.Tensor:
+    """Plain version of the batched code-lane kernel: every expert's codes
+    reassembled from (E, ka, M, Kw) / (E, kb, N, Kw) planes and contracted
+    in float64 (exact, as in the 2-D form) -> (E, M, N) int32."""
+    return torch.bmm(_codes(a_planes), _codes(b_planes).transpose(1, 2)).to(
+        torch.int32)
+
+
+def _codes(planes: torch.Tensor) -> torch.Tensor:
+    """(E, k, rows, Kw) plane words -> (E, rows, Kw*32) float64 codes
+    ``sum_i 2^i * plane_i``, summed in float32 (exact: codes <= 255)."""
+    k_all = planes.shape[-1] * bitpack.WORD_BITS
+    codes = bitpack.unpack_bits(planes[:, 0], k_all).to(torch.float32)
+    for i in range(1, planes.shape[1]):
+        codes += bitpack.unpack_bits(planes[:, i], k_all) * float(1 << i)
+    return codes.to(torch.float64)
+
+
 def kbit_mxu_gemm(a_planes: torch.Tensor,
                   b_planes: torch.Tensor) -> torch.Tensor:
     """Code-lane tensor-core GEMM: the same S (M, N) int32 as
@@ -51,3 +76,13 @@ def kbit_mxu_gemm(a_planes: torch.Tensor,
     if _cuda.on_cpu(a_planes, b_planes):
         return kbit_mxu_gemm_plain(a_planes, b_planes)
     return launch_planes("kbit_mxu_gemm", a_planes, b_planes)
+
+
+def kbit_mxu_gemm_batched(a_planes: torch.Tensor,
+                          b_planes: torch.Tensor) -> torch.Tensor:
+    """Expert-batched code-lane tensor-core GEMM (K10): the same S (E, M, N)
+    int32 as ``kbit_plane_gemm_batched``."""
+    check_planes(a_planes, b_planes, 4)
+    if _cuda.on_cpu(a_planes, b_planes):
+        return kbit_mxu_gemm_batched_plain(a_planes, b_planes)
+    return launch_planes("kbit_mxu_gemm_batched", a_planes, b_planes)

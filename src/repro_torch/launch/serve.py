@@ -14,10 +14,10 @@ bits, where packed and fake-quant agree per GEMM to fp32 rounding only, it
 reports how many tokens agree and where the streams first part.
 
 ``--arch`` resolves through the registry: granite-3-2b, or the MoE
-deepseek-moe-16b / qwen2-moe-a2.7b, whose packed 1-bit experts run on the
-expert-batched kernels (k-bit expert stacks raise: slice 4b).  The model is
-initialised whole in fp32 before packing, so cut full-width deepseek-moe
-with ``--layers``.
+deepseek-moe-16b / qwen2-moe-a2.7b, whose packed experts run on the
+expert-batched kernels (1-bit sign words on K7 / K8, DoReFa plane stacks
+on K9 / K10 with ``--quant wXaY``).  The model is initialised whole in
+fp32 before packing, so cut full-width deepseek-moe with ``--layers``.
 
 ``--kv-block-size N`` swaps the per-slot contiguous KV slabs for the
 block-table paged pool (greedy tokens stay bit-identical); add
@@ -40,6 +40,8 @@ Example:
       --smoke --device cpu --prompts 2 --new-tokens 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b \\
       --smoke --device cpu --backend mxu --check-fakequant
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b \\
+      --smoke --device cpu --quant w4a4 --check-fakequant
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
       --quant binary --backend vpu --kv-block-size 16 --prefill-chunk 256 \\
       --shared-prefix --fused-attn --kv-bits 8

@@ -132,7 +132,8 @@ def _expert_quant(w, ctx: QCtx, path: str):
 def _expert_weights(experts: Params, ctx: QCtx, path: str) -> Params:
     """Expert weight bundle.  Fake-quant: quantized ``{"up"/"gate": (E, D,
     F), "down": (E, F, D)}`` stacks for ``ragged_dot``.  Packed serving: the
-    converter's ``{name}_packed`` ``(E, d_out, Kw)`` word stacks pass
+    converter's ``{name}_packed`` stacks — ``(E, d_out, Kw)`` sign words at
+    1 bit, ``(E, w_bits, d_out, Kw)`` DoReFa bit planes at k bits — pass
     through untouched to ``dispatch.quant_gemm_grouped``, so only packed
     words reach the GEMM."""
     if "up_packed" in experts:

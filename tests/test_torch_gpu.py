@@ -79,7 +79,9 @@ def test_launch_counts(cuda):
                               "xnor_dot_mxu": 1, "xnor_mismatch_batched": 0,
                               "xnor_dot_mxu_batched": 0,
                               "quant_pack_planes": 0, "kbit_plane_gemm": 0,
-                              "kbit_mxu_gemm": 0, "flash_decode": 0}
+                              "kbit_mxu_gemm": 0, "flash_decode": 0,
+                              "kbit_plane_gemm_batched": 0,
+                              "kbit_mxu_gemm_batched": 0}
 
 
 @pytest.mark.parametrize("backend", ["vpu", "mxu"])
@@ -131,7 +133,9 @@ def test_grouped_launch_counts(cuda):
                               "xnor_dot_mxu": 0, "xnor_mismatch_batched": 2,
                               "xnor_dot_mxu_batched": 2,
                               "quant_pack_planes": 0, "kbit_plane_gemm": 0,
-                              "kbit_mxu_gemm": 0, "flash_decode": 0}
+                              "kbit_mxu_gemm": 0, "flash_decode": 0,
+                              "kbit_plane_gemm_batched": 0,
+                              "kbit_mxu_gemm_batched": 0}
 
 
 @pytest.mark.parametrize("backend", ["vpu", "mxu"])
@@ -202,7 +206,9 @@ def test_kbit_launch_counts(cuda):
                               "xnor_dot_mxu": 0, "xnor_mismatch_batched": 0,
                               "xnor_dot_mxu_batched": 0,
                               "quant_pack_planes": 3, "kbit_plane_gemm": 1,
-                              "kbit_mxu_gemm": 1, "flash_decode": 0}
+                              "kbit_mxu_gemm": 1, "flash_decode": 0,
+                              "kbit_plane_gemm_batched": 0,
+                              "kbit_mxu_gemm_batched": 0}
 
 
 @pytest.mark.parametrize("backend", ["vpu", "mxu"])
@@ -219,6 +225,76 @@ def test_kbit_quant_gemm_cuda_equals_cpu(cuda, backend, w_bits, a_bits):
     want = dispatch.quant_gemm(x.cpu(), wp.cpu(), k_true=8192, config=cfg,
                                w_bits=w_bits, a_bits=a_bits)
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("ka,kb", [(4, 4), (8, 8), (8, 4)])
+@pytest.mark.parametrize("e,m,n,kw", [(1, 1, 1, 1), (3, 5, 33, 7),
+                                      (64, 24, 1408, 64), (64, 24, 2048, 44),
+                                      (2, 77, 65, 9), (5, 17, 100, 5)])
+def test_batched_kbit_gemm_kernels_match_plain(cuda, e, m, n, kw, ka, kb):
+    """K9 and K10 against their plain versions, and each other, exactly."""
+    a, b = _words((e, ka, m, kw), 5, cuda), _words((e, kb, n, kw), 6, cuda)
+    got_v = kbit_gemm.kbit_plane_gemm_batched(a, b)
+    got_m = kbit_mxu.kbit_mxu_gemm_batched(a, b)
+    torch.cuda.synchronize()
+    want = kbit_gemm.kbit_plane_gemm_batched_plain(a, b)
+    assert torch.equal(got_v, want) and torch.equal(got_m, want)
+    assert torch.equal(kbit_mxu.kbit_mxu_gemm_batched_plain(a, b), want)
+
+
+def _grouped_kbit_operands(dev, w_bits, t=48, k=300, e=8, n=70, stacks=2):
+    x = _acts((t, k), 7, dev, 4)
+    ws = tuple(bitpack.pack_planes(quant.weight_codes(
+        _floats((e, n, k), 8 + i, dev).nan_to_num(0.0, 3.0, -3.0), w_bits),
+        w_bits).transpose(0, 1).contiguous() for i in range(stacks))
+    gs = torch.tensor([9, 0, 13, 1, 0, 11, 6, 4], device=dev)[:e]
+    return x, ws, gs
+
+
+def test_grouped_kbit_launch_counts(cuda):
+    """A grouped w4a4 call runs the prologue once and K9 (``vpu``) or K10
+    (``mxu``) once per stack — never the 2-D K5/K6 or the 1-bit kernels —
+    and ``xla`` and the CPU launch nothing."""
+    x, ws, gs = _grouped_kbit_operands(cuda, 4)
+    _cuda.reset_launches()
+    for backend in ("vpu", "mxu", "xla"):
+        dispatch.quant_gemm_grouped(x, ws, gs, k_true=x.shape[1], w_bits=4,
+                                    a_bits=4,
+                                    config=dispatch.GemmConfig(backend=backend))
+    dispatch.quant_gemm_grouped(x.cpu(), tuple(w.cpu() for w in ws), gs.cpu(),
+                                k_true=x.shape[1], w_bits=4, a_bits=4)
+    assert _cuda.LAUNCHES == {"pack_sign": 0, "xnor_mismatch": 0,
+                              "xnor_dot_mxu": 0, "xnor_mismatch_batched": 0,
+                              "xnor_dot_mxu_batched": 0,
+                              "quant_pack_planes": 2, "kbit_plane_gemm": 0,
+                              "kbit_mxu_gemm": 0, "flash_decode": 0,
+                              "kbit_plane_gemm_batched": 2,
+                              "kbit_mxu_gemm_batched": 2}
+
+
+@pytest.mark.parametrize("backend", ["vpu", "mxu"])
+@pytest.mark.parametrize("w_bits,a_bits", [(4, 4), (8, 8), (4, 8)])
+@pytest.mark.parametrize("stacks", [1, 2])
+@pytest.mark.parametrize("capacity", [None, 6, 2])  # full, drops, route-first
+def test_quant_gemm_grouped_kbit_cuda_equals_cpu(cuda, backend, w_bits,
+                                                 a_bits, stacks, capacity):
+    """The integer S and T are exact and the dequant is one fp32 op, so
+    the grouped k-bit output on the card has the CPU's bits."""
+    x, ws, gs = _grouped_kbit_operands(cuda, w_bits, stacks=stacks)
+    x = _acts(tuple(x.shape), 9, cuda, a_bits)
+    w = ws if stacks > 1 else ws[0]
+    cfg = dispatch.GemmConfig(backend=backend)
+    got = dispatch.quant_gemm_grouped(x, w, gs, k_true=x.shape[1], config=cfg,
+                                      expert_capacity=capacity, w_bits=w_bits,
+                                      a_bits=a_bits)
+    want = dispatch.quant_gemm_grouped(
+        x.cpu(), tuple(v.cpu() for v in ws) if stacks > 1 else w.cpu(),
+        gs.cpu(), k_true=x.shape[1], config=cfg, expert_capacity=capacity,
+        w_bits=w_bits, a_bits=a_bits)
+    got = got if stacks > 1 else (got,)
+    want = want if stacks > 1 else (want,)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
 
 
 @pytest.mark.parametrize("backend", ["vpu", "mxu"])
@@ -409,3 +485,39 @@ def test_moe_smoke_serving_packed_equals_fakequant_on_card(cuda, backend):
         assert sorted(got) == sorted(first) == list(range(len(prompts)))
         for rid in first:
             np.testing.assert_array_equal(got[rid], first[rid])
+
+
+def test_moe_smoke_serving_w4a4_vpu_equals_mxu_on_card(cuda):
+    """deepseek-moe smoke at w4a4 on the card: ``vpu-k4`` and ``mxu-k4``
+    give identical greedy streams (the same integer S), a repeat run
+    repeats, and the grouped GEMMs ran on K9 / K10 only."""
+    spec = registry.get("deepseek-moe-16b")
+    cfg = spec.smoke
+    policy = QuantPolicy.quantized(4)
+    params = lm.init(torch.Generator(device=cuda).manual_seed(0), cfg)
+    packed, _ = converter.convert(params, policy)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in (5, 5, 9, 3, 9, 4)]
+    names = {"vpu": "kbit_plane_gemm_batched", "mxu": "kbit_mxu_gemm_batched"}
+    streams = []
+    for backend in ("vpu", "mxu", "vpu"):
+        ctx = QCtx(policy=policy, compute_dtype=torch.float32,
+                   gemm_config=dispatch.GemmConfig(backend=backend))
+        eng = engine.Engine(spec, cfg, ctx, packed, engine.EngineConfig(
+            batch=2, cache_len=32, max_new_tokens=6))
+        sched = engine.Scheduler(eng)
+        for pr in prompts:
+            sched.submit(engine.Request(prompt=pr))
+        _cuda.reset_launches()
+        streams.append(sched.run())
+        other = names["mxu" if backend == "vpu" else "vpu"]
+        assert _cuda.LAUNCHES[names[backend]] > 0
+        assert _cuda.LAUNCHES[other] == 0
+        assert _cuda.LAUNCHES["quant_pack_planes"] > 0
+        assert _cuda.LAUNCHES["xnor_mismatch_batched"] == 0
+        assert _cuda.LAUNCHES["xnor_dot_mxu_batched"] == 0
+    for got in streams[1:]:
+        assert sorted(got) == sorted(streams[0]) == list(range(len(prompts)))
+        for rid in got:
+            np.testing.assert_array_equal(got[rid], streams[0][rid])

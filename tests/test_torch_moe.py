@@ -342,10 +342,17 @@ def test_packed_moe_reads_nothing_back_to_the_host(monkeypatch):
     """The packed path keeps group sizes, bucket cells and masks on the
     device: no ``item`` / ``tolist`` / truth value / ``nonzero`` anywhere
     in ``moe_apply`` with a packed backend (on the card each would stall
-    the stream)."""
+    the stream) — at 1 bit (``vpu`` / ``mxu``) and at w4a4 (``vpu-k4`` /
+    ``mxu-k4``), under full and tight expert capacity."""
     cfg, _, host, x = _moe_setup("qwen2-moe-a2.7b")
-    packed, _ = converter.convert(params_from_numpy(host, "cpu"),
-                                  QuantPolicy.binary())
+    params = params_from_numpy(host, "cpu")
+    policies = (QuantPolicy.binary(), QuantPolicy.quantized(4))
+    packed = [converter.convert(params, pol)[0] for pol in policies]
+    t = x.shape[0] * x.shape[1]
+    xs = torch.from_numpy(np.random.default_rng(8).uniform(
+        -0.5, 1.5, (t * cfg.top_k, cfg.d_model)).astype(np.float32))
+    gs = torch.zeros(cfg.e, dtype=torch.int64)
+    gs[:3] = torch.tensor([t, 0, t * cfg.top_k - t - 2])  # 2 rows past
 
     def sync(*_a, **_k):
         raise AssertionError("host sync on the packed MoE path")
@@ -354,12 +361,22 @@ def test_packed_moe_reads_nothing_back_to_the_host(monkeypatch):
                  "__index__", "nonzero"):
         monkeypatch.setattr(torch.Tensor, name, sync)
     monkeypatch.setattr(torch, "nonzero", sync)
+    ys = []
     with torch.inference_mode():
-        for backend in ("vpu", "mxu"):
-            y, _ = mlp.moe_apply(packed, torch.from_numpy(x), cfg,
-                                 _ctxs(backend)[1], "layers/1/moe")
+        for pol, p in zip(policies, packed):
+            for backend in ("vpu", "mxu"):
+                ctx = QCtx(policy=pol, compute_dtype=torch.float32,
+                           gemm_config=GemmConfig(backend=backend))
+                ys.append(mlp.moe_apply(p, torch.from_numpy(x), cfg, ctx,
+                                        "layers/1/moe")[0])
+            w = p["experts"]["up_packed"]
+            for backend in ("vpu", "mxu"):  # tight: the route-first prologue
+                ys.append(dispatch.quant_gemm_grouped(
+                    xs, w, gs, k_true=cfg.d_model, expert_capacity=2,
+                    config=GemmConfig(backend=backend), w_bits=pol.w_bits,
+                    a_bits=pol.a_bits))
     monkeypatch.undo()
-    assert torch.isfinite(y).all()
+    assert len(ys) == 8 and all(torch.isfinite(y).all() for y in ys)
 
 
 def test_mlp_no_unpack_on_expert_weights():
@@ -372,13 +389,6 @@ def test_mlp_no_unpack_on_expert_weights():
 def test_later_slice_paths_raise():
     cfg, _, host, x = _moe_setup("deepseek-moe-16b")
     params = params_from_numpy(host, "cpu")
-    with pytest.raises(NotImplementedError, match="slice 4b"):
-        converter.convert(params, QuantPolicy.quantized(4))
-    w = torch.zeros((cfg.e, 4, 3), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="slice 4b"):
-        dispatch.quant_gemm_grouped(torch.zeros((5, 96)), w,
-                                    torch.tensor([5] + [0] * (cfg.e - 1)),
-                                    k_true=96, w_bits=4, a_bits=4)
     ctx = dataclasses.replace(_ctxs("vpu")[1], mesh=object())
     with pytest.raises(NotImplementedError, match="slice 6"):
         mlp.moe_apply(params, torch.from_numpy(x), cfg, ctx, "layers/1/moe")
