@@ -25,11 +25,14 @@ Phases (any failure exits non-zero before the result line):
    Dh 64/128, softcap and window on and off, ragged slots, a -1 table entry
    and an unmapped slot (exact zeros); the expert-batched xnor-popcount
    (K7) and int8-unpack (K8) GEMMs exactly at E 1/3/64, 1/24/77 bucket
-   rows, N 1408/2048/33 and Kw 44/64/1/5, and ``quant_gemm_grouped`` on
-   the card == on the CPU (one stack and up + gate, full and tight
-   capacity, the route-first prologue); the expert-batched plane popcount
-   (K9) and code-lane ``mma`` (K10) GEMMs at the same grid times (ka, kb)
-   in {(4, 4), (8, 8), (8, 4)}, exactly and K9 == K10, and w4a4
+   rows, N 1408/2048/33 and Kw 44/64/1/5; K2/K3 and (at E 2) K7/K8 also
+   over K3's tile edges, M 1-576 x N 17-2047 x Kw 1-257 (``TILE_CASES``),
+   with K3 == 32*Kw - 2*K2 and K8 == 32*Kw - 2*K7 at every case; and
+   ``quant_gemm_grouped`` on the card == on the CPU (one stack and up +
+   gate, full and tight capacity, the route-first prologue); the
+   expert-batched plane popcount (K9) and code-lane ``mma`` (K10) GEMMs
+   at the same grid times (ka, kb) in {(4, 4), (8, 8), (8, 4)}, exactly
+   and K9 == K10, and w4a4
    ``quant_gemm_grouped`` on the card == on the CPU (plane buckets, code
    sums and the dequantized output exactly);
 3. timing: each kernel, its plain version and one PyTorch yardstick call
@@ -181,6 +184,11 @@ MOE_EXPERTS, MOE_TOP_K = 64, 6
 MOE_DECODE_EC = DECODE_M * MOE_TOP_K  # 24 bucket rows: capacity T*k at decode
 MOE_PREFILL_EC = 2 * 48 * MOE_TOP_K  # the mix's 96-token prefill run x top-6
 MOE_CUT_DEPTH = 4  # the dense layer 0 + 3 MoE layers, for the fake-quant oracle
+# K3 / K8 tile boundaries (as tests/test_torch_gpu.py): M on both sides of
+# the decode tile's 32 rows and K8's 24 / 576 buckets, N off the 16- and
+# 128-row tiles, Kw ragged against the 16-word chunk and the split-K runs
+TILE_CASES = [(m, n, kw) for m in (1, 4, 8, 9, 24, 32, 33, 64, 256, 576)
+              for n in (17, 512, 1408, 2047) for kw in (1, 5, 63, 65, 257)]
 
 
 def nvidia_smi(query: str) -> str:
@@ -213,23 +221,26 @@ def parity(dev) -> dict[str, float]:
              for m in (1, 3, DECODE_M, 128, PREFILL_M)]
     cases += [(m, n, k) for m in (1, 3, 128) for n, k in ((2047, 2049),
                                                           (513, 8191), (65, 33))]
+    # K3's tile boundaries, K ragged in the last word
+    cases += [(m, n, 32 * kw - (m + n + kw) % 32) for m, n, kw in TILE_CASES]
     err = {name: 0.0 for name in ONE_BIT}
     for m, n, k in cases:
         x = edge_floats((m, k), gen, dev)
         w = edge_floats((n, k), gen, dev)
         xp, wp = pack_bits.pack_sign(x), pack_bits.pack_sign(w)
+        mism = xnor_gemm.xnor_mismatch(xp, wp)
+        dot = xnor_gemm.xnor_dot_mxu(xp, wp)
         pairs = {
             "pack_sign": [(xp, pack_bits.pack_sign_plain(x)),
                           (wp, pack_bits.pack_sign_plain(w))],
-            "xnor_mismatch": [(xnor_gemm.xnor_mismatch(xp, wp),
-                               xnor_gemm.xnor_mismatch_plain(xp, wp))],
-            "xnor_dot_mxu": [(xnor_gemm.xnor_dot_mxu(xp, wp),
-                              xnor_gemm.xnor_dot_mxu_plain(xp, wp))],
+            "xnor_mismatch": [(mism, xnor_gemm.xnor_mismatch_plain(xp, wp))],
+            "xnor_dot_mxu": [(dot, xnor_gemm.xnor_dot_mxu_plain(xp, wp)),
+                             (dot, 32 * xp.shape[1] - 2 * mism)],
         }
         torch.cuda.synchronize()
         check_exact(pairs, err, f"M={m} N={n} K={k}")
     print(f"parity: {len(cases)} shapes, K1-K3 equal their plain versions "
-          f"exactly (int32)")
+          f"exactly (int32), and K3 == 32*Kw - 2*K2")
     return err
 
 
@@ -332,9 +343,11 @@ def routed_group_sizes(t: int, gen, dev) -> torch.Tensor:
 def parity_moe(dev) -> dict[str, float]:
     """K7 / K8 against their plain versions, bit for bit, at E in {1, 3,
     64}, bucket rows in {1, 24, 77}, N in {1408, 2048, 33}, Kw in {44, 64,
-    1, 5} (random words, tail bits zeroed); then ``quant_gemm_grouped`` on
-    the card against the same call on the CPU for ``vpu`` and ``mxu``, one
-    stack and the up + gate tuple, full and tight capacity: at the decode
+    1, 5}, and at E 2 over K8's tile edges (``TILE_CASES``; random words,
+    tail bits zeroed), with K8 == 32*Kw - 2*K7 at each; then
+    ``quant_gemm_grouped`` on the card against the same call on the CPU
+    for ``vpu`` and ``mxu``, one stack and the up + gate tuple, full and
+    tight capacity: at the decode
     shapes of deepseek-moe-16b (24 rows routed top-6 over 64 experts, up /
     gate K 2048 and down K 1408), and at a small ragged shape whose tight
     capacity takes the route-first prologue."""
@@ -343,25 +356,26 @@ def parity_moe(dev) -> dict[str, float]:
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     err = {name: 0.0 for name in MOE_KERNELS}
-    n_cases = 0
-    for e in (1, 3, MOE_EXPERTS):
-        for ec in (1, MOE_DECODE_EC, 77):
-            for n in (1408, 2048, 33):
-                for kw in (44, 64, 1, 5):
-                    k_true = kw * 32 - int(torch.randint(
-                        0, 32, (1,), generator=gen, device=dev))
-                    a = expert_words((e, ec, kw), k_true, gen, dev)
-                    b = expert_words((e, n, kw), k_true, gen, dev)
-                    pairs = {
-                        "xnor_mismatch_batched": [(
-                            xnor_gemm.xnor_mismatch_batched(a, b),
-                            xnor_gemm.xnor_mismatch_batched_plain(a, b))],
-                        "xnor_dot_mxu_batched": [(
-                            xnor_gemm.xnor_dot_mxu_batched(a, b),
-                            xnor_gemm.xnor_dot_mxu_batched_plain(a, b))]}
-                    torch.cuda.synchronize()
-                    check_exact(pairs, err, f"E={e} ec={ec} N={n} Kw={kw}")
-                    n_cases += 1
+    cases = [(e, ec, n, kw) for e in (1, 3, MOE_EXPERTS)
+             for ec in (1, MOE_DECODE_EC, 77) for n in (1408, 2048, 33)
+             for kw in (44, 64, 1, 5)]
+    cases += [(2, ec, n, kw) for ec, n, kw in TILE_CASES]  # K8's tile edges
+    for e, ec, n, kw in cases:
+        k_true = kw * 32 - int(torch.randint(0, 32, (1,), generator=gen,
+                                             device=dev))
+        a = expert_words((e, ec, kw), k_true, gen, dev)
+        b = expert_words((e, n, kw), k_true, gen, dev)
+        mism = xnor_gemm.xnor_mismatch_batched(a, b)
+        dot = xnor_gemm.xnor_dot_mxu_batched(a, b)
+        pairs = {
+            "xnor_mismatch_batched": [(
+                mism, xnor_gemm.xnor_mismatch_batched_plain(a, b))],
+            "xnor_dot_mxu_batched": [(
+                dot, xnor_gemm.xnor_dot_mxu_batched_plain(a, b)),
+                (dot, 32 * kw - 2 * mism)]}
+        torch.cuda.synchronize()
+        check_exact(pairs, err, f"E={e} ec={ec} N={n} Kw={kw}")
+    n_cases = len(cases)
     grouped = [  # (label, T, K, N, group sizes, capacities)
         ("decode up/gate", MOE_DECODE_EC, 2048, 1408,
          routed_group_sizes(DECODE_M, gen, dev), (None, 3)),
@@ -397,7 +411,8 @@ def parity_moe(dev) -> dict[str, float]:
                                 f"capacity {cap}: card != CPU")
                     n_grouped += 1
     print(f"parity: K7/K8 at {n_cases} (E, rows, N, Kw) cases equal their "
-          f"plain versions exactly (int32); quant_gemm_grouped on the card "
+          f"plain versions exactly (int32), and K8 == 32*Kw - 2*K7; "
+          f"quant_gemm_grouped on the card "
           f"== on the CPU in {n_grouped} calls (vpu/mxu x one stack/up+gate "
           f"x full/tight capacity; deepseek-moe-16b decode shapes and a "
           f"route-first case)")
@@ -724,9 +739,11 @@ def timing(dev, popc_per_s: float) -> tuple[dict, list]:
     codes, so its bound is the larger of its bytes at the HBM rate and
     ``2*M*N*K`` int8 operations at the tensor cores' peak, whichever kernel
     computes it; the popcount kernels (K2, K5) also get the ceiling of their
-    own algorithm at the popc rate (``popc_bound_ms``).  The plain K5 runs
-    ka*kb int64 popcount passes (about a second per prefill call at w8a8),
-    so plain versions at prefill are timed once."""
+    own algorithm at the popc rate (``popc_bound_ms``).  K3 is timed again
+    on one weight copy that stays in the L2 cache (``warm_ms``): a time that
+    does not drop says device-memory bytes do not bound it.  The plain K5
+    runs ka*kb int64 popcount passes (about a second per prefill call at
+    w8a8), so plain versions at prefill are timed once."""
     from repro_torch.kernels import kbit_gemm, kbit_mxu, pack_bits, xnor_gemm
 
     fns = {  # name: (kernel, plain version)
@@ -776,6 +793,9 @@ def timing(dev, popc_per_s: float) -> tuple[dict, list]:
                         ops_s=2 * m * n * k / INT8_OPS_PER_S)
                 row[popc_gemm]["popc_bound_ms"] = (
                     bits * bits * m * n * kw / popc_per_s * 1e3)
+                if mma_gemm == "xnor_dot_mxu":  # K3: weights L2-resident
+                    row[mma_gemm]["warm_ms"] = graph_ms(
+                        fns[mma_gemm][0], [(xp, wps[0])], nw)
                 finish_row(row, FAMILIES[bits],
                            f"timing w{bits}a{bits} M={m} {name} N={n} K={k}")
                 rows.append(row)
@@ -799,6 +819,8 @@ def finish_row(row: dict, names, label: str) -> None:
         + f" bound {row[kn]['bound_ms'] * 1e3:.3f}"
         + ("" if "popc_bound_ms" not in row[kn]
            else f" popc ceiling {row[kn]['popc_bound_ms'] * 1e3:.3f}")
+        + ("" if "warm_ms" not in row[kn]
+           else f" L2-warm {row[kn]['warm_ms'] * 1e3:.3f}")
         for kn in names))
 
 
@@ -979,7 +1001,8 @@ def timing_moe(dev, popc_per_s: float) -> tuple[dict, list]:
     ``2*E*rows*N*K`` int8 operations at the tensor cores' peak (the
     function is the integer dot of the codes); the popcount kernels' (K7,
     K9) own ceiling at the popc rate is printed beside it, ka*kb = 16 times
-    K7's for K9.  Weight stacks cycle through enough copies to overflow the
+    K7's for K9, and K8's time on one L2-resident weight stack (``warm_ms``)
+    as for K3.  Weight stacks cycle through enough copies to overflow the
     L2 cache, as 27 MoE layers read their experts cold.  Returns (one
     decode step of one MoE layer per kernel: up + gate + down, rows)."""
     from repro_torch.kernels import kbit_gemm, kbit_mxu, xnor_gemm
@@ -1023,6 +1046,9 @@ def timing_moe(dev, popc_per_s: float) -> tuple[dict, list]:
                         ops_s=2 * e * ec * n * k / INT8_OPS_PER_S)
                 row[names[0]]["popc_bound_ms"] = (
                     bits * bits * e * ec * n * kw / popc_per_s * 1e3)
+                if bits == 1:  # K8: one weight stack, L2-resident
+                    row[names[1]]["warm_ms"] = graph_ms(
+                        fns[names[1]][0], [(a, w0)], 4 * nw)
                 width = "1-bit" if bits == 1 else f"w{bits}a{bits}"
                 finish_row(row, names, f"timing MoE {width} E={e} rows={ec} "
                            f"{row['layer']} N={n} K={k}")
@@ -1201,7 +1227,7 @@ def serving_moe(dev) -> tuple[dict, dict]:
     runs, launches = serve_mix(
         spec, cfg, binary, (("packed-vpu", packed, "vpu"),
                             ("packed-mxu", packed, "mxu")), prompts, "MoE ",
-        ref_label="packed-vpu", profile=("packed-vpu",))
+        ref_label="packed-vpu", profile=("packed-vpu", "packed-mxu"))
     gate_moe_launches(runs, launches, "",
                       cfg.n_layers - cfg.first_dense_layers, 1)
     if not same_streams(runs, "packed-mxu", "packed-vpu"):

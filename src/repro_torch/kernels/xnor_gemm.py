@@ -12,9 +12,14 @@ words packed along K — core/bitpack.py) and return raw int32 outputs that
 ``xnor_dot_mxu`` (backend ``mxu``)
     unpack every word to ±1 int8 and contract: the *padded* dot, inflated
     by ``mxu_pad_inflation(Kw, k_true)`` because zero pad bits unpack to
-    (-1)·(-1).  CUDA: ``csrc/xnor_dot_mxu.cu`` (±1 int8 tiles in shared
-    memory, ``mma.sync`` m16n8k32 s8 on the tensor cores); it contracts
-    exactly the Kw words it is given.
+    (-1)·(-1); it equals ``32 * Kw - 2 * xnor_mismatch``.  CUDA:
+    ``csrc/xnor_dot_mxu.cu`` (``mma.sync`` m16n8k32 s8 on the tensor cores,
+    ±1 int8 fragments unpacked from the words in registers, words streamed
+    through a ``cp.async`` ring); it contracts exactly the Kw words it is
+    given.  Two tiles: up to 32 activation rows a swap-AB decode tile
+    (weight rows in the m16 slot, each weight word read and unpacked once
+    per call, K split among a block's warps where N is small), above that
+    a prefill tile of 128 weight rows x 64 activation rows per block.
 
 On a CUDA tensor each wrapper launches its kernel (or raises); on a CPU
 tensor it runs its ``*_plain`` version, which repeats the kernel's integer
@@ -141,7 +146,8 @@ def xnor_mismatch(a_packed: torch.Tensor,
 def xnor_dot_mxu(a_packed: torch.Tensor,
                  b_packed: torch.Tensor) -> torch.Tensor:
     """MXU path: the *padded* ±1 dot (M, N) int32 over exactly Kw words.
-    True dot = result - mxu_pad_inflation(Kw, k_true)."""
+    True dot = result - mxu_pad_inflation(Kw, k_true).  The kernel runs
+    its decode tile for M <= 32 and its prefill tile above."""
     _check_operands(a_packed, b_packed)
     if _cuda.on_cpu(a_packed, b_packed):
         return xnor_dot_mxu_plain(a_packed, b_packed)
@@ -161,7 +167,10 @@ def xnor_mismatch_batched(a_packed: torch.Tensor,
 def xnor_dot_mxu_batched(a_packed: torch.Tensor,
                          b_packed: torch.Tensor) -> torch.Tensor:
     """Expert-batched MXU path: (E, M, N) int32 *padded* ±1 dots over
-    exactly Kw words (K8); subtract ``mxu_pad_inflation(Kw, k_true)``."""
+    exactly Kw words (K8); subtract ``mxu_pad_inflation(Kw, k_true)``.
+    K3's two tiles per expert (``blockIdx.z``): the decode tile for bucket
+    rows M <= 32 (deepseek-moe-16b's 24 at decode), the prefill tile
+    above."""
     _check_operands(a_packed, b_packed, 3)
     if _cuda.on_cpu(a_packed, b_packed):
         return xnor_dot_mxu_batched_plain(a_packed, b_packed)

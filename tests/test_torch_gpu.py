@@ -56,15 +56,25 @@ def test_pack_sign_kernel_matches_plain(cuda, m, k):
     assert torch.equal(got, pack_bits.pack_sign_plain(x))
 
 
+# K3 / K8 tile boundaries: M on both sides of the decode tile's 32 rows
+# (and K8's 24 / 576 bucket rows), N off the 16- and 128-row tiles, Kw
+# ragged against the 16-word chunk and the split-K runs
+TILE_M = (1, 4, 8, 9, 24, 32, 33, 64, 256, 576)
+TILE_N = (17, 512, 1408, 2047)
+TILE_KW = (1, 5, 63, 65, 257)
+TILE_CASES = [(m, n, kw) for m in TILE_M for n in TILE_N for kw in TILE_KW]
+
+
 @pytest.mark.parametrize("m,n,kw", [(1, 1, 1), (3, 5, 7), (4, 2048, 64),
                                     (17, 8192, 64), (128, 2048, 256),
-                                    (33, 65, 9)])
+                                    (33, 65, 9)] + TILE_CASES)
 def test_gemm_kernels_match_plain(cuda, m, n, kw):
     a, b = _words((m, kw), 1, cuda), _words((n, kw), 2, cuda)
     got_v, got_m = xnor_gemm.xnor_mismatch(a, b), xnor_gemm.xnor_dot_mxu(a, b)
     torch.cuda.synchronize()
     assert torch.equal(got_v, xnor_gemm.xnor_mismatch_plain(a, b))
     assert torch.equal(got_m, xnor_gemm.xnor_dot_mxu_plain(a, b))
+    assert torch.equal(got_m, 32 * kw - 2 * got_v)
 
 
 def test_launch_counts(cuda):
@@ -100,7 +110,9 @@ def test_quant_gemm_cuda_equals_cpu(cuda, backend, k):
 
 @pytest.mark.parametrize("e,m,n,kw", [(1, 1, 1, 1), (3, 5, 33, 7),
                                       (64, 24, 1408, 64), (64, 24, 2048, 44),
-                                      (2, 77, 65, 9), (5, 17, 100, 5)])
+                                      (64, 576, 1408, 64), (2, 77, 65, 9),
+                                      (5, 17, 100, 5)]
+                         + [(2, m, n, kw) for m, n, kw in TILE_CASES])
 def test_batched_gemm_kernels_match_plain(cuda, e, m, n, kw):
     a, b = _words((e, m, kw), 3, cuda), _words((e, n, kw), 4, cuda)
     got_v = xnor_gemm.xnor_mismatch_batched(a, b)
@@ -108,6 +120,7 @@ def test_batched_gemm_kernels_match_plain(cuda, e, m, n, kw):
     torch.cuda.synchronize()
     assert torch.equal(got_v, xnor_gemm.xnor_mismatch_batched_plain(a, b))
     assert torch.equal(got_m, xnor_gemm.xnor_dot_mxu_batched_plain(a, b))
+    assert torch.equal(got_m, 32 * kw - 2 * got_v)
 
 
 def _grouped_operands(dev, t=48, k=300, e=8, n=70, stacks=2):

@@ -76,6 +76,29 @@ def test_gemm_plain_versions_ragged_against_numpy(m, n, k):
         np.testing.assert_array_equal(got.numpy(), dot)
 
 
+# the K3 / K8 tile boundaries (tests/test_torch_gpu.py), one axis at a time
+# beside cheap values of the other two: M around the decode tile's 32 rows
+# and K8's 24 / 576 buckets, N off the 16- and 128-row tiles, Kw ragged
+# against the 16-word chunk
+@pytest.mark.parametrize(
+    "m,n,kw", [(m, 2047, 5) for m in (1, 4, 8, 9, 24, 32, 33, 64, 256, 576)]
+    + [(33, n, 65) for n in (17, 512, 1408, 2047)]
+    + [(24, 1408, kw) for kw in (1, 5, 63, 65, 257)])
+def test_mxu_plain_is_padded_popcount_identity(m, n, kw):
+    """The padded ±1 dot over Kw words is ``32*Kw - 2*mismatches``, 2-D and
+    expert-batched: the identity the card holds K3 / K8 to beside K2 / K7."""
+    rng = np.random.default_rng(m * 7 + n * 3 + kw)
+    _, a = _words(rng, (2, m, kw))
+    _, b = _words(rng, (2, n, kw))
+    mism = xnor_gemm.xnor_mismatch_plain(a[0], b[0])
+    assert torch.equal(xnor_gemm.xnor_dot_mxu_plain(a[0], b[0]),
+                       32 * kw - 2 * mism)
+    mism_b = xnor_gemm.xnor_mismatch_batched_plain(a, b)
+    assert torch.equal(mism_b[0], mism)
+    assert torch.equal(xnor_gemm.xnor_dot_mxu_batched_plain(a, b),
+                       32 * kw - 2 * mism_b)
+
+
 EPILOGUES = [dict(), dict(scale=True), dict(xnor_range=True), dict(bias=True),
              dict(scale=True, xnor_range=True, bias=True)]
 
