@@ -32,7 +32,11 @@ Phases (any failure exits non-zero before the result line):
    gate, full and tight capacity, the route-first prologue); the
    expert-batched plane popcount (K9) and code-lane ``mma`` (K10) GEMMs
    at the same grid times (ka, kb) in {(4, 4), (8, 8), (8, 4)}, exactly
-   and K9 == K10, and w4a4
+   and K9 == K10; K5 == K6 and (at E 2) K9 == K10 also over the tile edges
+   (``TILE_CASES``, one plane pair per shape in turn) and on rows that are
+   zero in every plane, which K5 / K9 skip (bucket tails and empty experts
+   of seeded routings, rows zero in some planes or one Kw slice only),
+   where S must be 0; and w4a4
    ``quant_gemm_grouped`` on the card == on the CPU (plane buckets, code
    sums and the dequantized output exactly);
 3. timing: each kernel, its plain version and one PyTorch yardstick call
@@ -47,7 +51,9 @@ Phases (any failure exits non-zero before the result line):
    fp32 operations); K7 / K8 (1 bit) and K9 / K10 (w4a4) at
    deepseek-moe-16b's expert GEMMs (64 experts; 24 bucket rows at decode,
    576 at the mix's largest prefill) beside a bf16 ``torch.bmm`` yardstick,
-   their bound and (K7, K9) their popcount ceiling;
+   their bound and (K7, K9) their popcount ceiling, and K9 / K10 once more
+   at decode on the buckets of a seeded top-6 routing of 4 tokens (the
+   experts touched and their planes' bytes printed beside it);
 4. serving: granite-3-2b at full width (d_model 2048, 32/8 heads, d_ff 8192,
    vocab 49155 padded to 49408), all 40 layers, params from a seeded
    ``torch.Generator`` on the card, each run with its kernel counts set to
@@ -189,6 +195,12 @@ MOE_CUT_DEPTH = 4  # the dense layer 0 + 3 MoE layers, for the fake-quant oracle
 # 128-row tiles, Kw ragged against the 16-word chunk and the split-K runs
 TILE_CASES = [(m, n, kw) for m in (1, 4, 8, 9, 24, 32, 33, 64, 256, 576)
               for n in (17, 512, 1408, 2047) for kw in (1, 5, 63, 65, 257)]
+# K5 / K9 zero-row cases (as tests/test_torch_gpu.py): rows whose planes
+# are all zero, which the kernels skip, at decode- and prefill-tile shapes
+ZERO_ROWS = ("front", "planes", "slice", "all")
+ZERO_SHAPES = ((4, 2048, 64), (24, 1408, 63), (32, 512, 257), (33, 65, 9),
+               (256, 1408, 65), (576, 17, 5))
+EDGE_PLANE_PAIRS = PLANE_PAIRS + ((3, 5),)  # (ka, kb) cycled over TILE_CASES
 
 
 def nvidia_smi(query: str) -> str:
@@ -283,6 +295,31 @@ def weight_planes(n: int, k: int, w_bits: int, gen, dev) -> torch.Tensor:
     return bitpack.pack_planes(quant.weight_codes(w, w_bits), w_bits)
 
 
+def zero_rows(a, zeros):
+    """Zero rows of a (..., ka, M, Kw) activation plane stack in place and
+    return the (..., M) mask of rows zero in every plane and word: "front"
+    keeps the first third of the rows (a bucket's rows packed at the front,
+    zeros behind), "planes" zeroes every other row in its low planes only,
+    "slice" every third row in the upper half of its words only, "all"
+    every row."""
+    m, kw = a.shape[-2:]
+    if zeros == "front":
+        a[..., (m + 2) // 3:, :] = 0
+    elif zeros == "planes":
+        a[..., : (a.shape[-3] + 1) // 2, ::2, :] = 0
+    elif zeros == "slice":
+        a[..., ::3, kw // 2:] = 0
+    elif zeros == "all":
+        a.zero_()
+    return (a == 0).all(dim=-1).all(dim=-2)
+
+
+def check_zero_rows(name: str, s, zero, where: str) -> None:
+    """S must be exactly 0 on the rows that are zero in every plane."""
+    if s[zero].any():
+        raise AssertionError(f"{name} at {where}: nonzero S on a zero row")
+
+
 def parity_kbit(dev) -> dict[str, float]:
     from repro_torch.kernels import kbit_gemm, kbit_mxu, pack_bits
 
@@ -316,9 +353,31 @@ def parity_kbit(dev) -> dict[str, float]:
                          "kbit_mxu_gemm": [(s6, kbit_mxu.kbit_mxu_gemm_plain(
                              ap, wp)), (s6, s5)]}, err,
                         f"M={m} N={n} K={k} ka={ka} kb={kb}")
+    # the tiles' edges, one plane pair per shape in turn, and zero rows at
+    # every plane pair (random words, which reach every bit)
+    edges = [(m, n, kw, None, EDGE_PLANE_PAIRS[i % len(EDGE_PLANE_PAIRS)])
+             for i, (m, n, kw) in enumerate(TILE_CASES)]
+    edges += [(m, n, kw, z, pair) for z in ZERO_ROWS
+              for m, n, kw in ZERO_SHAPES for pair in PLANE_PAIRS]
+    for m, n, kw, zeros, (ka, kb) in edges:
+        ap = expert_words((ka, m, kw), 32 * kw, gen, dev)
+        wp = expert_words((kb, n, kw), 32 * kw, gen, dev)
+        zero = zero_rows(ap, zeros)
+        s5 = kbit_gemm.kbit_plane_gemm(ap, wp)
+        s6 = kbit_mxu.kbit_mxu_gemm(ap, wp)
+        want = kbit_gemm.kbit_plane_gemm_plain(ap, wp)
+        torch.cuda.synchronize()
+        where = f"M={m} N={n} Kw={kw} ka={ka} kb={kb} zero rows {zeros}"
+        check_exact({"kbit_plane_gemm": [(s5, want)],
+                     "kbit_mxu_gemm": [(s6, kbit_mxu.kbit_mxu_gemm_plain(
+                         ap, wp)), (s6, s5)]}, err, where)
+        check_zero_rows("kbit_plane_gemm", s5, zero, where)
     print(f"parity: K4 at {n_k4} (M, K, a_bits) cases, K5/K6 at "
-          f"{len(cases)} shapes x {len(PLANE_PAIRS)} plane pairs: equal to "
-          f"their plain versions and K5 == K6, exactly (int32)")
+          f"{len(cases)} shapes x {len(PLANE_PAIRS)} plane pairs, "
+          f"{len(TILE_CASES)} tile-edge shapes (ka, kb cycling over "
+          f"{EDGE_PLANE_PAIRS}) and {len(edges) - len(TILE_CASES)} zero-row "
+          f"cases: equal to their plain versions and K5 == K6, exactly "
+          f"(int32); S == 0 on every row zero in all planes")
     return err
 
 
@@ -467,6 +526,41 @@ def parity_moe_kbit(dev) -> dict[str, float]:
                                     f" ka={ka} kb={kb}")
                         n_cases += 1
                         del a, b, s9, s10, pairs
+    # the tiles' edges at E 2 (one plane pair per shape in turn); zero rows:
+    # buckets packed at the front by a seeded top-6 routing (4 and 96
+    # tokens over 64 experts, empty experts included), and rows zero in
+    # some planes or one Kw slice only
+    edges = [(2, m, n, kw, None, MOE_PLANE_PAIRS[i % len(MOE_PLANE_PAIRS)])
+             for i, (m, n, kw) in enumerate(TILE_CASES)]
+    edges += [(MOE_EXPERTS, ec, n, kw, "routed", pair)
+              for ec in (MOE_DECODE_EC, MOE_PREFILL_EC)
+              for n, kw in ((1408, 64), (2048, 44)) for pair in MOE_PLANE_PAIRS]
+    edges += [(3, m, n, kw, z, pair) for z in ZERO_ROWS
+              for m, n, kw in ZERO_SHAPES[:3] for pair in MOE_PLANE_PAIRS]
+    n_routed = 0
+    for e, ec, n, kw, zeros, (ka, kb) in edges:
+        a = expert_words((e, ka, ec, kw), 32 * kw, gen, dev)
+        b = expert_words((e, kb, n, kw), 32 * kw, gen, dev)
+        if zeros == "routed":
+            gs = routed_group_sizes(ec // MOE_TOP_K, gen, dev)
+            zero = torch.arange(ec, device=dev)[None, :] >= gs[:, None]
+            a.masked_fill_(zero[:, None, :, None], 0)
+            n_routed += int((gs == 0).sum())
+        else:
+            zero = zero_rows(a, zeros)
+        s9 = kbit_gemm.kbit_plane_gemm_batched(a, b)
+        s10 = kbit_mxu.kbit_mxu_gemm_batched(a, b)
+        want = kbit_gemm.kbit_plane_gemm_batched_plain(a, b)
+        torch.cuda.synchronize()
+        where = (f"E={e} ec={ec} N={n} Kw={kw} ka={ka} kb={kb} zero rows "
+                 f"{zeros}")
+        check_exact({"kbit_plane_gemm_batched": [(s9, want)],
+                     "kbit_mxu_gemm_batched": [
+                         (s10, kbit_mxu.kbit_mxu_gemm_batched_plain(a, b)),
+                         (s10, s9)]}, err, where)
+        check_zero_rows("kbit_plane_gemm_batched", s9, zero, where)
+        n_cases += 1
+        del a, b, s9, s10, want
     # (label, T, K, N, group sizes, capacities, stack forms): at the decode
     # shapes the forms the MoE layer calls (up + gate as one tuple, down
     # alone); the plain versions on the CPU are the costly side
@@ -525,8 +619,11 @@ def parity_moe_kbit(dev) -> dict[str, float]:
                                 f"quant_gemm_grouped w4a4 {backend} {label} "
                                 f"capacity {cap}: card != CPU")
                     n_grouped += 1
-    print(f"parity: K9/K10 at {n_cases} (E, rows, N, Kw, ka, kb) cases equal "
-          f"their plain versions and K9 == K10 exactly (int32); w4a4 "
+    print(f"parity: K9/K10 at {n_cases} (E, rows, N, Kw, ka, kb) cases "
+          f"({len(TILE_CASES)} tile-edge shapes at E 2, routed buckets with "
+          f"{n_routed} empty experts in all, rows zero in some planes or one "
+          f"Kw slice) equal their plain versions and K9 == K10 exactly "
+          f"(int32), S == 0 on every row zero in all planes; w4a4 "
           f"quant_gemm_grouped on the card == on the CPU in {n_grouped} calls"
           f" (vpu/mxu x full/tight capacity, route-first included; decode "
           f"up+gate tuple and down, a ragged case with both forms): plane "
@@ -821,6 +918,8 @@ def finish_row(row: dict, names, label: str) -> None:
            else f" popc ceiling {row[kn]['popc_bound_ms'] * 1e3:.3f}")
         + ("" if "warm_ms" not in row[kn]
            else f" L2-warm {row[kn]['warm_ms'] * 1e3:.3f}")
+        + ("" if "zero_ms" not in row[kn]
+           else f" all-zero buckets {row[kn]['zero_ms'] * 1e3:.3f}")
         for kn in names))
 
 
@@ -1030,10 +1129,16 @@ def timing_moe(dev, popc_per_s: float) -> tuple[dict, list]:
                                            for _ in range(nl - 1)]
                 del wb
                 lib_ms = graph_ms(torch.bmm, [(xb, w) for w in wbs], 2 * nl)
+                routed = None
+                if bits > 1 and ec == MOE_DECODE_EC:
+                    ra, rxb, gs = routed_buckets(bits, k, gen, dev)
+                    routed = (ra, gs, graph_ms(torch.bmm, [
+                        (rxb, w) for w in wbs], 2 * nl))
+                    del rxb
                 del wbs
                 row = {"bits": bits, "m": ec, "layer": "up/gate"
                        if name == "gate" else name, "e": e, "n": n, "k": k,
-                       "copies": nw}
+                       "copies": nw, "routed": False}
                 for kname in names:
                     kernel, plain = fns[kname]
                     row[kname] = dict(
@@ -1053,12 +1158,15 @@ def timing_moe(dev, popc_per_s: float) -> tuple[dict, list]:
                 finish_row(row, names, f"timing MoE {width} E={e} rows={ec} "
                            f"{row['layer']} N={n} K={k}")
                 rows.append(row)
-                del ws, a, xb
+                if routed:
+                    rows.append(routed_row(names, fns, routed, ws, row,
+                                           popc_per_s))
+                del ws, a, xb, routed
     totals = {}
     for kname in MOE_KERNELS + MOE_KBIT_KERNELS:
         # one decode step of one MoE layer: up + gate (one row, twice) + down
         rs = [(2 if r["layer"] == "up/gate" else 1, r[kname]) for r in rows
-              if r["m"] == MOE_DECODE_EC and kname in r]
+              if r["m"] == MOE_DECODE_EC and kname in r and not r["routed"]]
         t_bytes = sum(c * r["bytes"] for c, r in rs) / HBM_BYTES_PER_S
         t_ops = sum(c * r["ops_s"] for c, r in rs)
         totals[kname] = dict(
@@ -1068,6 +1176,64 @@ def timing_moe(dev, popc_per_s: float) -> tuple[dict, list]:
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=sum(c * r["library_ms"] for c, r in rs))
     return totals, rows
+
+
+def routed_buckets(bits: int, k: int, gen, dev):
+    """Decode buckets of a seeded top-6 routing of 4 tokens over 64
+    experts, built as ``quant_gemm_grouped`` builds them (``_bucket_cells``
+    + ``_pack_plane_buckets``): each expert's rows at the front of its
+    24-row bucket, zero planes behind them, the experts that got no token
+    all zero.  Returns the (E, bits, 24, Kw) plane buckets, their bf16
+    dequantized values (E, 24, K) for the yardstick, and the group
+    sizes."""
+    from repro_torch.core import bitpack
+    from repro_torch.kernels import dispatch
+
+    gs = routed_group_sizes(DECODE_M, gen, dev)
+    x = dorefa_acts((MOE_DECODE_EC, k), gen, dev, bits)
+    dest, cell, _ = dispatch._bucket_cells(gs, MOE_DECODE_EC, MOE_DECODE_EC)
+    a, _ = dispatch._pack_plane_buckets(x, bits, dest, cell, MOE_EXPERTS,
+                                        MOE_DECODE_EC, True)
+    xq = bitpack.unpack_planes(a.movedim(1, 0), k).to(torch.float32)
+    return a, (xq / float((1 << bits) - 1)).to(torch.bfloat16), gs
+
+
+def routed_row(names, fns, routed, ws, dense: dict, popc_per_s: float):
+    """K9 / K10 on the routed decode buckets of :func:`routed_buckets`
+    against the dense row's weight copies.  The bound counts what this
+    routing needs: the planes of the experts that got a token, the buckets
+    and the output at the HBM rate, and ``2*routed rows*N*K`` int8
+    operations (K9's popcount ceiling likewise); the bf16 ``torch.bmm``
+    yardstick (``library_ms``, timed on the same buckets) still computes
+    every bucket row.  K9 is timed once more on all-zero buckets
+    (``zero_ms``), the floor of its zero-row skip."""
+    a, gs, lib_ms = routed
+    e, bits, ec, kw = a.shape
+    n, k = dense["n"], dense["k"]
+    touched, rows = int((gs > 0).sum()), int(gs.sum())
+    plane_bytes = bits * touched * n * kw * 4
+    row = dict(dense, routed=True, experts_touched=touched, routed_rows=rows,
+               touched_plane_bytes=plane_bytes)
+    for kname in names:
+        kernel, plain = fns[kname]
+        row[kname] = dict(
+            ms=graph_ms(kernel, [(a, w) for w in ws], 4 * len(ws)),
+            plain_ms=graph_ms(plain, [(a, ws[0])], 2, reps=3),
+            library_ms=lib_ms,
+            bytes=plane_bytes + (bits * e * ec * kw + e * ec * n) * 4,
+            ops_s=2 * rows * n * k / INT8_OPS_PER_S)
+    row[names[0]]["popc_bound_ms"] = (
+        bits * bits * rows * n * kw / popc_per_s * 1e3)
+    # K9 on buckets whose rows are all zero: what the zero-row skip costs
+    # with no row to contract (every block stages its rows, stores zeros)
+    zero = torch.zeros_like(a)
+    row[names[0]]["zero_ms"] = graph_ms(fns[names[0]][0],
+                                        [(zero, w) for w in ws], 4 * len(ws))
+    finish_row(row, names, f"timing MoE w{bits}a{bits} E={e} rows={ec} "
+               f"routed ({rows} rows, {touched} experts touched, "
+               f"{plane_bytes / 1e6:.3f} MB of their planes) {row['layer']} "
+               f"N={n} K={k}")
+    return row
 
 
 # --------------------------------------------------------------------------

@@ -16,20 +16,31 @@ operands, so no pad correction exists, and S over disjoint Kw slices sums
 exactly.
 
 On a CUDA tensor :func:`kbit_plane_gemm` launches the hand-written Hopper
-kernel (``csrc/kbit_plane_gemm.cu``: shared-memory plane-word tiles +
-``__popc``) or raises; on a CPU tensor it runs
-:func:`kbit_plane_gemm_plain`, which repeats the kernel's integer algorithm
-in PyTorch ops (int64 SWAR popcount).
+kernel (``csrc/kbit_plane_gemm.cu``, AND + ``__popc`` on the CUDA cores)
+or raises; on a CPU tensor it runs :func:`kbit_plane_gemm_plain`, which
+repeats the kernel's integer algorithm in PyTorch ops (int64 SWAR
+popcount).  The kernel picks one of two tiles from the shapes and the SM
+count: a decode tile for M <= 32 (each weight word read from device memory
+once per call into registers and met by all M*ka activation words, split
+over K where N is small; also taken, in row groups of 32, past 32 rows
+where the prefill grid would leave most SMs idle) and a 64 x 64 prefill
+tile of 4 x 4 sums per thread.  Both skip activation rows whose planes are
+all zero: such a row's S is exactly 0 (x & 0 = 0), so the output keeps
+every bit, and a block with no other row stores zeros and reads no weight
+word.
 
 :func:`kbit_plane_gemm_batched` is the same function over a leading expert
 axis, ``(E, ka, M, Kw) x (E, kb, N, Kw) -> (E, M, N)`` — the MoE expert
 buckets of ``dispatch.quant_gemm_grouped`` at k bits (K9).  Its CUDA
-kernel is the 2-D tile with ``blockIdx.z`` = expert, in the same source
-under its own C entry point (so launch counts and profiler names tell it
-from K5).  Its plain version counts each plane pair's common set bits as
-an exact float32 ``bmm`` of the unpacked 0/1 planes (every partial sum is
-an integer below 2^24), which the serving shapes' ``ka*kb`` passes over
-64 experts need: the SWAR form would take seconds per call.
+kernels are the same two tiles with ``blockIdx.z`` = expert, in the same
+source under its own C entry point (so launch counts and profiler names
+tell it from K5).  The buckets hold each expert's rows at the front and
+zero planes behind, so at decode the zero-row skip leaves only the experts
+that received a token, and only their rows.  Its plain version counts
+each plane pair's common set bits as an exact float32 ``bmm`` of the
+unpacked 0/1 planes (every partial sum is an integer below 2^24), which
+the serving shapes' ``ka*kb`` passes over 64 experts need: the SWAR form
+would take seconds per call.
 """
 
 from __future__ import annotations
@@ -120,7 +131,9 @@ def launch_planes(name: str, a_planes: torch.Tensor,
 def kbit_plane_gemm(a_planes: torch.Tensor,
                     b_planes: torch.Tensor) -> torch.Tensor:
     """Weighted bit-plane AND popcount GEMM: S (M, N) int32 from (ka, M, Kw)
-    activation and (kb, N, Kw) weight plane stacks (ka != kb allowed)."""
+    activation and (kb, N, Kw) weight plane stacks (ka != kb allowed).  On
+    the card the decode tile (M <= 32) or the prefill tile runs; rows zero
+    in every plane are skipped and give S = 0."""
     check_planes(a_planes, b_planes)
     if _cuda.on_cpu(a_planes, b_planes):
         return kbit_plane_gemm_plain(a_planes, b_planes)
@@ -131,7 +144,9 @@ def kbit_plane_gemm_batched(a_planes: torch.Tensor,
                             b_planes: torch.Tensor) -> torch.Tensor:
     """Expert-batched weighted plane popcount GEMM (K9): (E, ka, M, Kw)
     activation buckets x (E, kb, N, Kw) expert plane stacks -> S (E, M, N)
-    int32."""
+    int32.  On the card the decode or prefill tile runs per expert; bucket
+    rows zero in every plane (the tails behind each expert's rows, experts
+    with no row) are skipped and give S = 0."""
     check_planes(a_planes, b_planes, 4)
     if _cuda.on_cpu(a_planes, b_planes):
         return kbit_plane_gemm_batched_plain(a_planes, b_planes)

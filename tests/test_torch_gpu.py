@@ -194,17 +194,54 @@ def test_quant_pack_planes_kernel_matches_plain(cuda, a_bits, m, k):
     assert torch.equal(got_p, want_p) and torch.equal(got_t, want_t)
 
 
-@pytest.mark.parametrize("ka,kb", [(2, 2), (4, 4), (8, 8), (8, 4), (3, 5)])
-@pytest.mark.parametrize("m,n,kw", [(1, 1, 1), (3, 5, 7), (4, 2048, 64),
-                                    (17, 512, 256), (33, 65, 9)])
-def test_kbit_gemm_kernels_match_plain(cuda, ka, kb, m, n, kw):
+# K5 / K9 tiles: plane pairs, the decode / prefill tiles' edges
+# (TILE_CASES: M on both sides of the decode tile's 32 rows and the prefill
+# tile's 64, N off the 16- and 64-row tiles, Kw ragged against the 8-word
+# chunk and the split-K runs), and rows whose planes are all zero, which
+# the kernel skips: their S must be exactly 0
+KBIT_PAIRS = [(2, 2), (4, 4), (8, 8), (8, 4), (3, 5)]
+ZERO_ROWS = ("front", "planes", "slice", "all")
+ZERO_SHAPES = [(4, 2048, 64), (24, 1408, 63), (32, 512, 257), (33, 65, 9),
+               (256, 1408, 65), (576, 17, 5)]
+
+
+def _zero_rows(a, zeros):
+    """Zero rows of a (..., ka, M, Kw) activation plane stack in place and
+    return the (..., M) mask of rows zero in every plane and word (none of
+    the random rows when ``zeros`` is None): "front" keeps the first third
+    of the rows (the MoE buckets pack an expert's rows at the front, zeros
+    behind); "planes" zeroes every other row in the low half of the planes
+    only; "slice" every third row in the upper half of its words only;
+    "all" every row."""
+    m, kw = a.shape[-2:]
+    if zeros == "front":
+        a[..., (m + 2) // 3:, :] = 0
+    elif zeros == "planes":
+        a[..., : (a.shape[-3] + 1) // 2, ::2, :] = 0
+    elif zeros == "slice":
+        a[..., ::3, kw // 2:] = 0
+    elif zeros == "all":
+        a.zero_()
+    return (a == 0).all(dim=-1).all(dim=-2)
+
+
+@pytest.mark.parametrize("ka,kb", KBIT_PAIRS)
+@pytest.mark.parametrize("m,n,kw,zeros",
+                         [(1, 1, 1, None), (3, 5, 7, None), (4, 2048, 64, None),
+                          (17, 512, 256, None), (33, 65, 9, None)]
+                         + [(m, n, kw, None) for m, n, kw in TILE_CASES]
+                         + [(m, n, kw, z) for z in ZERO_ROWS
+                            for m, n, kw in ZERO_SHAPES])
+def test_kbit_gemm_kernels_match_plain(cuda, ka, kb, m, n, kw, zeros):
     a, b = _words((ka, m, kw), 1, cuda), _words((kb, n, kw), 2, cuda)
+    zero = _zero_rows(a, zeros)
     got_v, got_m = kbit_gemm.kbit_plane_gemm(a, b), kbit_mxu.kbit_mxu_gemm(a, b)
     torch.cuda.synchronize()
     want = kbit_gemm.kbit_plane_gemm_plain(a, b)
     assert torch.equal(got_v, want)
     assert torch.equal(got_m, want)
     assert torch.equal(kbit_mxu.kbit_mxu_gemm_plain(a, b), want)
+    assert not got_v[zero].any()
 
 
 def test_kbit_launch_counts(cuda):
@@ -240,19 +277,46 @@ def test_kbit_quant_gemm_cuda_equals_cpu(cuda, backend, w_bits, a_bits):
     assert torch.equal(got.cpu(), want)
 
 
-@pytest.mark.parametrize("ka,kb", [(4, 4), (8, 8), (8, 4)])
-@pytest.mark.parametrize("e,m,n,kw", [(1, 1, 1, 1), (3, 5, 33, 7),
-                                      (64, 24, 1408, 64), (64, 24, 2048, 44),
-                                      (2, 77, 65, 9), (5, 17, 100, 5)])
-def test_batched_kbit_gemm_kernels_match_plain(cuda, e, m, n, kw, ka, kb):
-    """K9 and K10 against their plain versions, and each other, exactly."""
+def _bucket_rows(a, seed):
+    """Pack each expert's rows at the front of its bucket, as the grouped
+    GEMM's ``_bucket_cells`` does: expert x keeps its first g_x rows, g_x
+    drawn from the seed with expert 0 empty and the last expert full, and
+    the rows behind them are zero planes.  Returns the zero-row mask."""
+    e, _, m, _ = a.shape
+    g = torch.Generator(device=a.device).manual_seed(seed)
+    sizes = torch.randint(0, m + 1, (e,), generator=g, device=a.device)
+    sizes[0], sizes[-1] = 0, m
+    zero = torch.arange(m, device=a.device)[None, :] >= sizes[:, None]
+    a.masked_fill_(zero[:, None, :, None], 0)
+    return zero
+
+
+@pytest.mark.parametrize("ka,kb", KBIT_PAIRS)
+@pytest.mark.parametrize("e,m,n,kw,zeros",
+                         [(1, 1, 1, 1, None), (3, 5, 33, 7, None),
+                          (64, 24, 1408, 64, None), (64, 24, 2048, 44, None),
+                          (2, 77, 65, 9, None), (5, 17, 100, 5, None)]
+                         + [(2, m, n, kw, None) for m, n, kw in TILE_CASES]
+                         + [(e, m, n, kw, "buckets") for e, m, n, kw in (
+                             (64, 24, 1408, 64), (64, 24, 2048, 44),
+                             (4, 576, 200, 44), (3, 33, 65, 9),
+                             (5, 64, 512, 257))]
+                         + [(3, m, n, kw, z) for z in ZERO_ROWS
+                            for m, n, kw in ZERO_SHAPES[:3]])
+def test_batched_kbit_gemm_kernels_match_plain(cuda, e, m, n, kw, zeros, ka,
+                                               kb):
+    """K9 and K10 against their plain versions, and each other, exactly;
+    rows zero in every plane (bucket tails, experts with no row) give S 0."""
     a, b = _words((e, ka, m, kw), 5, cuda), _words((e, kb, n, kw), 6, cuda)
+    zero = (_bucket_rows(a, 7) if zeros == "buckets"
+            else _zero_rows(a, zeros))
     got_v = kbit_gemm.kbit_plane_gemm_batched(a, b)
     got_m = kbit_mxu.kbit_mxu_gemm_batched(a, b)
     torch.cuda.synchronize()
     want = kbit_gemm.kbit_plane_gemm_batched_plain(a, b)
     assert torch.equal(got_v, want) and torch.equal(got_m, want)
     assert torch.equal(kbit_mxu.kbit_mxu_gemm_batched_plain(a, b), want)
+    assert not got_v[zero].any()
 
 
 def _grouped_kbit_operands(dev, w_bits, t=48, k=300, e=8, n=70, stacks=2):
