@@ -34,9 +34,9 @@ Phases (any failure exits non-zero before the result line):
    at the same grid times (ka, kb) in {(4, 4), (8, 8), (8, 4)}, exactly
    and K9 == K10; K5 == K6 and (at E 2) K9 == K10 also over the tile edges
    (``TILE_CASES``, one plane pair per shape in turn) and on rows that are
-   zero in every plane, which K5 / K9 skip (bucket tails and empty experts
-   of seeded routings, rows zero in some planes or one Kw slice only),
-   where S must be 0; and w4a4
+   zero in every plane, which K5 / K6 / K9 / K10 skip (bucket tails and
+   empty experts of seeded routings, rows zero in some planes or one Kw
+   slice only), where S must be 0; and w4a4
    ``quant_gemm_grouped`` on the card == on the CPU (plane buckets, code
    sums and the dequantized output exactly);
 3. timing: each kernel, its plain version and one PyTorch yardstick call
@@ -195,8 +195,9 @@ MOE_CUT_DEPTH = 4  # the dense layer 0 + 3 MoE layers, for the fake-quant oracle
 # 128-row tiles, Kw ragged against the 16-word chunk and the split-K runs
 TILE_CASES = [(m, n, kw) for m in (1, 4, 8, 9, 24, 32, 33, 64, 256, 576)
               for n in (17, 512, 1408, 2047) for kw in (1, 5, 63, 65, 257)]
-# K5 / K9 zero-row cases (as tests/test_torch_gpu.py): rows whose planes
-# are all zero, which the kernels skip, at decode- and prefill-tile shapes
+# K5 / K6 / K9 / K10 zero-row cases (as tests/test_torch_gpu.py): rows whose
+# planes are all zero, which the kernels skip, at decode- and prefill-tile
+# shapes
 ZERO_ROWS = ("front", "planes", "slice", "all")
 ZERO_SHAPES = ((4, 2048, 64), (24, 1408, 63), (32, 512, 257), (33, 65, 9),
                (256, 1408, 65), (576, 17, 5))
@@ -336,12 +337,15 @@ def parity_kbit(dev) -> dict[str, float]:
                 check_exact({"quant_pack_planes": list(zip(got, want))}, err,
                             f"M={m} K={k} a_bits={a_bits}")
                 n_k4 += 1
-    cases = [(m, n, k) for _, n, k in LAYER_GEMMS for m in (1, DECODE_M,
-                                                           PREFILL_M)]
-    cases += [(m, n, k) for m in (1, 3, 128) for n, k in ((2047, 2049),
-                                                          (513, 8191), (65, 33))]
-    for m, n, k in cases:
-        for ka, kb in PLANE_PAIRS:
+    # granite's GEMMs at the decode batch and the prefill rows (the decode
+    # tiles' split-K runs and row groups) at every plane pair
+    cases = [(m, n, k, EDGE_PLANE_PAIRS if m > 1 else PLANE_PAIRS)
+             for _, n, k in LAYER_GEMMS for m in (1, DECODE_M, PREFILL_M)]
+    cases += [(m, n, k, PLANE_PAIRS) for m in (1, 3, 128)
+              for n, k in ((2047, 2049), (513, 8191), (65, 33))]
+    n_gemm = sum(len(pairs) for *_, pairs in cases)
+    for m, n, k, pairs in cases:
+        for ka, kb in pairs:
             ap, _ = pack_bits.quant_pack_planes(
                 dorefa_acts((m, k), gen, dev, ka), ka)
             wp = weight_planes(n, k, kb, gen, dev)
@@ -372,8 +376,11 @@ def parity_kbit(dev) -> dict[str, float]:
                      "kbit_mxu_gemm": [(s6, kbit_mxu.kbit_mxu_gemm_plain(
                          ap, wp)), (s6, s5)]}, err, where)
         check_zero_rows("kbit_plane_gemm", s5, zero, where)
+        check_zero_rows("kbit_mxu_gemm", s6, zero, where)
     print(f"parity: K4 at {n_k4} (M, K, a_bits) cases, K5/K6 at "
-          f"{len(cases)} shapes x {len(PLANE_PAIRS)} plane pairs, "
+          f"{n_gemm} (shape, plane pair) cases ({len(cases)} shapes, "
+          f"granite's at M {DECODE_M} and {PREFILL_M} over "
+          f"{EDGE_PLANE_PAIRS}), "
           f"{len(TILE_CASES)} tile-edge shapes (ka, kb cycling over "
           f"{EDGE_PLANE_PAIRS}) and {len(edges) - len(TILE_CASES)} zero-row "
           f"cases: equal to their plain versions and K5 == K6, exactly "
@@ -559,6 +566,7 @@ def parity_moe_kbit(dev) -> dict[str, float]:
                          (s10, kbit_mxu.kbit_mxu_gemm_batched_plain(a, b)),
                          (s10, s9)]}, err, where)
         check_zero_rows("kbit_plane_gemm_batched", s9, zero, where)
+        check_zero_rows("kbit_mxu_gemm_batched", s10, zero, where)
         n_cases += 1
         del a, b, s9, s10, want
     # (label, T, K, N, group sizes, capacities, stack forms): at the decode
@@ -836,11 +844,12 @@ def timing(dev, popc_per_s: float) -> tuple[dict, list]:
     codes, so its bound is the larger of its bytes at the HBM rate and
     ``2*M*N*K`` int8 operations at the tensor cores' peak, whichever kernel
     computes it; the popcount kernels (K2, K5) also get the ceiling of their
-    own algorithm at the popc rate (``popc_bound_ms``).  K3 is timed again
-    on one weight copy that stays in the L2 cache (``warm_ms``): a time that
-    does not drop says device-memory bytes do not bound it.  The plain K5
-    runs ka*kb int64 popcount passes (about a second per prefill call at
-    w8a8), so plain versions at prefill are timed once."""
+    own algorithm at the popc rate (``popc_bound_ms``).  K3 and K6 are
+    timed again on one weight copy that stays in the L2 cache
+    (``warm_ms``): a time that does not drop says device-memory bytes do
+    not bound them.  The plain K5 runs ka*kb int64 popcount passes (about a
+    second per prefill call at w8a8), so plain versions at prefill are
+    timed once."""
     from repro_torch.kernels import kbit_gemm, kbit_mxu, pack_bits, xnor_gemm
 
     fns = {  # name: (kernel, plain version)
@@ -890,9 +899,9 @@ def timing(dev, popc_per_s: float) -> tuple[dict, list]:
                         ops_s=2 * m * n * k / INT8_OPS_PER_S)
                 row[popc_gemm]["popc_bound_ms"] = (
                     bits * bits * m * n * kw / popc_per_s * 1e3)
-                if mma_gemm == "xnor_dot_mxu":  # K3: weights L2-resident
-                    row[mma_gemm]["warm_ms"] = graph_ms(
-                        fns[mma_gemm][0], [(xp, wps[0])], nw)
+                # K3 / K6: one weight copy, L2-resident
+                row[mma_gemm]["warm_ms"] = graph_ms(
+                    fns[mma_gemm][0], [(xp, wps[0])], nw)
                 finish_row(row, FAMILIES[bits],
                            f"timing w{bits}a{bits} M={m} {name} N={n} K={k}")
                 rows.append(row)
@@ -1100,10 +1109,11 @@ def timing_moe(dev, popc_per_s: float) -> tuple[dict, list]:
     ``2*E*rows*N*K`` int8 operations at the tensor cores' peak (the
     function is the integer dot of the codes); the popcount kernels' (K7,
     K9) own ceiling at the popc rate is printed beside it, ka*kb = 16 times
-    K7's for K9, and K8's time on one L2-resident weight stack (``warm_ms``)
-    as for K3.  Weight stacks cycle through enough copies to overflow the
-    L2 cache, as 27 MoE layers read their experts cold.  Returns (one
-    decode step of one MoE layer per kernel: up + gate + down, rows)."""
+    K7's for K9, and K8's and K10's time on one L2-resident weight stack
+    (``warm_ms``) as for K3.  Weight stacks cycle through enough copies to
+    overflow the L2 cache, as 27 MoE layers read their experts cold.
+    Returns (one decode step of one MoE layer per kernel: up + gate + down,
+    rows)."""
     from repro_torch.kernels import kbit_gemm, kbit_mxu, xnor_gemm
 
     fns = {"xnor_mismatch_batched": (xnor_gemm.xnor_mismatch_batched,
@@ -1151,9 +1161,9 @@ def timing_moe(dev, popc_per_s: float) -> tuple[dict, list]:
                         ops_s=2 * e * ec * n * k / INT8_OPS_PER_S)
                 row[names[0]]["popc_bound_ms"] = (
                     bits * bits * e * ec * n * kw / popc_per_s * 1e3)
-                if bits == 1:  # K8: one weight stack, L2-resident
-                    row[names[1]]["warm_ms"] = graph_ms(
-                        fns[names[1]][0], [(a, w0)], 4 * nw)
+                # K8 / K10: one weight stack, L2-resident
+                row[names[1]]["warm_ms"] = graph_ms(
+                    fns[names[1]][0], [(a, w0)], 4 * nw)
                 width = "1-bit" if bits == 1 else f"w{bits}a{bits}"
                 finish_row(row, names, f"timing MoE {width} E={e} rows={ec} "
                            f"{row['layer']} N={n} K={k}")
@@ -1205,8 +1215,8 @@ def routed_row(names, fns, routed, ws, dense: dict, popc_per_s: float):
     and the output at the HBM rate, and ``2*routed rows*N*K`` int8
     operations (K9's popcount ceiling likewise); the bf16 ``torch.bmm``
     yardstick (``library_ms``, timed on the same buckets) still computes
-    every bucket row.  K9 is timed once more on all-zero buckets
-    (``zero_ms``), the floor of its zero-row skip."""
+    every bucket row.  K9 and K10 are timed once more on all-zero buckets
+    (``zero_ms``), the floor of their zero-row skip."""
     a, gs, lib_ms = routed
     e, bits, ec, kw = a.shape
     n, k = dense["n"], dense["k"]
@@ -1224,11 +1234,12 @@ def routed_row(names, fns, routed, ws, dense: dict, popc_per_s: float):
             ops_s=2 * rows * n * k / INT8_OPS_PER_S)
     row[names[0]]["popc_bound_ms"] = (
         bits * bits * rows * n * kw / popc_per_s * 1e3)
-    # K9 on buckets whose rows are all zero: what the zero-row skip costs
-    # with no row to contract (every block stages its rows, stores zeros)
+    # on buckets whose rows are all zero: what the zero-row skip costs with
+    # no row to contract (every block stages its rows, stores zeros)
     zero = torch.zeros_like(a)
-    row[names[0]]["zero_ms"] = graph_ms(fns[names[0]][0],
-                                        [(zero, w) for w in ws], 4 * len(ws))
+    for kname in names:
+        row[kname]["zero_ms"] = graph_ms(fns[kname][0],
+                                         [(zero, w) for w in ws], 4 * len(ws))
     finish_row(row, names, f"timing MoE w{bits}a{bits} E={e} rows={ec} "
                f"routed ({rows} rows, {touched} experts touched, "
                f"{plane_bytes / 1e6:.3f} MB of their planes) {row['layer']} "
@@ -1559,7 +1570,8 @@ def serving_moe_kbit(dev) -> tuple[dict, dict]:
     runs, launches = serve_mix(
         spec, cfg, w4a4, (("packed-vpu", packed, "vpu"),
                           ("packed-mxu", packed, "mxu")), prompts,
-        "MoE w4a4 ", ref_label="packed-vpu", profile=("packed-vpu",))
+        "MoE w4a4 ", ref_label="packed-vpu",
+        profile=("packed-vpu", "packed-mxu"))
     gate(runs, launches, "", cfg.n_layers)
     if not same_streams(runs, "packed-mxu", "packed-vpu"):
         raise AssertionError("MoE w4a4 full depth: packed-vpu and packed-mxu "

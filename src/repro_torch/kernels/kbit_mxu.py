@@ -5,8 +5,8 @@ DoReFa bit planes behind ``mxu-k2/k4/k8``; PyTorch port of
 The weighted plane sum of :mod:`repro_torch.kernels.kbit_gemm` is the
 integer dot of the reassembled codes ``n = sum_i 2^i * plane_i``:
 ``S[m, n] = sum_k n_a[m, k] * n_w[n, k]``.  So this kernel streams the same
-packed plane words, reassembles one byte-wide code lane per bit position
-on chip, and contracts once on the int8 tensor cores instead of ``ka*kb``
+packed plane words, builds one byte-wide code lane per bit position in
+registers, and contracts once on the int8 tensor cores instead of ``ka*kb``
 popcount passes.
 
 The TPU kernel contracts signed offset codes ``n - 2^(k-1)`` and restores
@@ -17,15 +17,32 @@ unsigned 8-bit operands, so the CUDA kernel (``csrc/kbit_mxu_gemm.cu``,
 directly: there is no offset, no restore and no pad term, and absent words
 are code 0.  It equals :func:`kbit_gemm.kbit_plane_gemm` bit for bit.
 
+The kernel picks one of two tiles from the shapes and the SM count: a
+swap-AB decode tile for M <= 32 (weight rows in the tensor core's 16-row
+slot, so each weight plane word is read and built into codes once per
+call whatever M is; the activation codes are built once per block into
+shared memory; split over K where N is small; also taken, in row groups of
+32, past 32 rows where the prefill grid would leave most SMs idle) and a
+128 x 64 prefill tile that builds each code once per tile and chunk.  A
+transpose network builds the codes from the plane words (byte j of
+register s holds the code of bit 8j + s), the same for both operands
+whatever their plane counts, so ``ka != kb`` share one lane order.  Both
+tiles skip activation rows whose planes are all zero: such a row's codes
+are 0, so its S is exactly 0 and the output keeps every bit, and a block
+with no other row stores zeros and reads no weight word.
+
 On a CUDA tensor :func:`kbit_mxu_gemm` launches the kernel (or raises); on
 a CPU tensor it runs :func:`kbit_mxu_gemm_plain`.
 
 :func:`kbit_mxu_gemm_batched` is the same function over a leading expert
 axis, ``(E, ka, M, Kw) x (E, kb, N, Kw) -> (E, M, N)`` (K10, the MoE
-expert buckets of the ``mxu-k*`` backends): the 2-D tile with
-``blockIdx.z`` = expert under its own C entry point.  The TPU's batched
-kernel applies the rank-1 restore per expert; here, as in 2-D, the raw
-codes give S directly, equal to ``kbit_plane_gemm_batched`` bit for bit.
+expert buckets of the ``mxu-k*`` backends): the same two tiles with
+``blockIdx.z`` = expert under its own C entry point.  The buckets hold
+each expert's rows at the front and zero planes (or code-0 rows) behind,
+so at decode only the experts that received a token, and only the 8-row
+fragments that hold their rows, are contracted.  The TPU's batched kernel
+applies the rank-1 restore per expert; here, as in 2-D, the raw codes give
+S directly, equal to ``kbit_plane_gemm_batched`` bit for bit.
 """
 
 from __future__ import annotations
@@ -71,7 +88,9 @@ def _codes(planes: torch.Tensor) -> torch.Tensor:
 def kbit_mxu_gemm(a_planes: torch.Tensor,
                   b_planes: torch.Tensor) -> torch.Tensor:
     """Code-lane tensor-core GEMM: the same S (M, N) int32 as
-    ``kbit_plane_gemm`` from (ka, M, Kw) x (kb, N, Kw) plane stacks."""
+    ``kbit_plane_gemm`` from (ka, M, Kw) x (kb, N, Kw) plane stacks.  On
+    the card the swap-AB decode tile (M <= 32) or the 128 x 64 prefill tile
+    runs; rows zero in every plane are skipped and give S = 0."""
     check_planes(a_planes, b_planes)
     if _cuda.on_cpu(a_planes, b_planes):
         return kbit_mxu_gemm_plain(a_planes, b_planes)
@@ -81,7 +100,9 @@ def kbit_mxu_gemm(a_planes: torch.Tensor,
 def kbit_mxu_gemm_batched(a_planes: torch.Tensor,
                           b_planes: torch.Tensor) -> torch.Tensor:
     """Expert-batched code-lane tensor-core GEMM (K10): the same S (E, M, N)
-    int32 as ``kbit_plane_gemm_batched``."""
+    int32 as ``kbit_plane_gemm_batched``, on the same two tiles with one
+    expert per grid slice; bucket rows zero in every plane are skipped
+    (S = 0), so experts that received no token read no weight word."""
     check_planes(a_planes, b_planes, 4)
     if _cuda.on_cpu(a_planes, b_planes):
         return kbit_mxu_gemm_batched_plain(a_planes, b_planes)

@@ -194,12 +194,17 @@ def test_quant_pack_planes_kernel_matches_plain(cuda, a_bits, m, k):
     assert torch.equal(got_p, want_p) and torch.equal(got_t, want_t)
 
 
-# K5 / K9 tiles: plane pairs, the decode / prefill tiles' edges
-# (TILE_CASES: M on both sides of the decode tile's 32 rows and the prefill
-# tile's 64, N off the 16- and 64-row tiles, Kw ragged against the 8-word
-# chunk and the split-K runs), and rows whose planes are all zero, which
-# the kernel skips: their S must be exactly 0
+# K5 / K9 and K6 / K10 tiles: plane pairs, the decode / prefill tiles'
+# edges (TILE_CASES: M on both sides of the decode tile's 32 rows and the
+# prefill tiles' 64, N off the 16-, 64- and 128-row tiles, Kw ragged against
+# the 8-word chunk and the split-K runs), granite's GEMMs at the decode
+# batch and the prefill rows (the decode tile's split-K runs and row groups),
+# and rows whose planes are all zero, which the kernels skip: their S must
+# be exactly 0
 KBIT_PAIRS = [(2, 2), (4, 4), (8, 8), (8, 4), (3, 5)]
+GRANITE_CASES = [(m, n, kw) for m in (4, 256)
+                 for n, kw in ((2048, 64), (512, 64), (8192, 64), (2048, 256))
+                 if (m, n, kw) != (4, 2048, 64)]
 ZERO_ROWS = ("front", "planes", "slice", "all")
 ZERO_SHAPES = [(4, 2048, 64), (24, 1408, 63), (32, 512, 257), (33, 65, 9),
                (256, 1408, 65), (576, 17, 5)]
@@ -230,6 +235,7 @@ def _zero_rows(a, zeros):
                          [(1, 1, 1, None), (3, 5, 7, None), (4, 2048, 64, None),
                           (17, 512, 256, None), (33, 65, 9, None)]
                          + [(m, n, kw, None) for m, n, kw in TILE_CASES]
+                         + [(m, n, kw, None) for m, n, kw in GRANITE_CASES]
                          + [(m, n, kw, z) for z in ZERO_ROWS
                             for m, n, kw in ZERO_SHAPES])
 def test_kbit_gemm_kernels_match_plain(cuda, ka, kb, m, n, kw, zeros):
@@ -241,7 +247,7 @@ def test_kbit_gemm_kernels_match_plain(cuda, ka, kb, m, n, kw, zeros):
     assert torch.equal(got_v, want)
     assert torch.equal(got_m, want)
     assert torch.equal(kbit_mxu.kbit_mxu_gemm_plain(a, b), want)
-    assert not got_v[zero].any()
+    assert not got_v[zero].any() and not got_m[zero].any()
 
 
 def test_kbit_launch_counts(cuda):
@@ -316,7 +322,7 @@ def test_batched_kbit_gemm_kernels_match_plain(cuda, e, m, n, kw, zeros, ka,
     want = kbit_gemm.kbit_plane_gemm_batched_plain(a, b)
     assert torch.equal(got_v, want) and torch.equal(got_m, want)
     assert torch.equal(kbit_mxu.kbit_mxu_gemm_batched_plain(a, b), want)
-    assert not got_v[zero].any()
+    assert not got_v[zero].any() and not got_m[zero].any()
 
 
 def _grouped_kbit_operands(dev, w_bits, t=48, k=300, e=8, n=70, stacks=2):

@@ -150,34 +150,46 @@ def test_batched_kbit_plain_kernels_match_jax(e, m, n, kw, ka, kb):
         assert torch.equal(kbit_mxu.kbit_mxu_gemm_plain(at[x], bt[x]), want)
 
 
+@pytest.mark.parametrize("kernel", ["vpu", "mxu"])
 @pytest.mark.parametrize("ka,kb", PLANE_PAIRS)
-@pytest.mark.parametrize("sizes,k", [([3, 0, 8, 1], 70), ([0, 5, 0, 2], 128),
-                                     ([1, 0], 33)])
-def test_batched_kbit_plain_zero_bucket_rows_match_jax(sizes, k, ka, kb):
+@pytest.mark.parametrize("sizes,k,ec", [([3, 0, 8, 1], 70, 8),
+                                        ([0, 5, 0, 2], 128, 8),
+                                        ([1, 0], 33, 8),
+                                        ([5, 0, 9, 1], 70, 2)])
+def test_batched_kbit_plain_zero_bucket_rows_match_jax(sizes, k, ec, ka, kb,
+                                                       kernel):
     """Front-packed buckets as the grouped k-bit GEMM builds them
-    (``_bucket_cells`` + ``_pack_plane_buckets``, capacity 8): each expert's
-    rows first, zero planes behind them, experts with no row all zero; one
-    row also zeroed in its low planes only and one in its upper words only.
-    K9's plain version equals the JAX batched kernel (interpret mode) bit
-    for bit, and S is exactly 0 on every row that is zero in all planes,
-    the rows the CUDA kernel skips."""
-    rng = np.random.default_rng(sum(sizes) * k + ka * kb)
-    e, ec, n = len(sizes), 8, 16
+    (``_bucket_cells`` + ``_pack_plane_buckets``): each expert's rows first,
+    zero planes behind them, experts with no row all zero; one row also
+    zeroed in its low planes only and one in its upper words only.  At
+    capacity 2 the bucket total is below the row count, so the prologue
+    routes first: slack cells are -1.0 floats, code 0, and must be zero in
+    every plane.  K9's (``vpu``) or K10's (``mxu``) plain version equals
+    the JAX batched kernel (interpret mode) bit for bit, and S is exactly 0
+    on every row that is zero in all planes, the rows the CUDA kernels
+    skip."""
+    rng = np.random.default_rng(sum(sizes) * k + ka * kb + ec)
+    e, n = len(sizes), 16
     x = torch.from_numpy(rng.uniform(0.05, 1.5, (sum(sizes), k)).astype(
         np.float32))
     gs = torch.tensor(sizes)
     dest, cell, _ = dispatch._bucket_cells(gs, x.shape[0], ec)
     a, _ = dispatch._pack_plane_buckets(x, ka, dest, cell, e, ec, False)
-    live = [(x_, r) for x_, g in enumerate(sizes) for r in range(g)]
+    assert (e * ec < x.shape[0]) == (ec == 2)  # route-first at capacity 2
+    live = [(x_, r) for x_, g in enumerate(sizes) for r in range(min(g, ec))]
     a[live[0][0], : ka // 2, live[0][1]] = 0  # zero in some planes only
     a[live[-1][0], :, live[-1][1], a.shape[-1] // 2:] = 0  # in one Kw slice
     bu, bt = _plane_words(rng, (e, kb, n, a.shape[-1]))
-    au = a.numpy().view(np.uint32)
-    want = np.asarray(kbit_plane_gemm_batched_pallas(
-        jnp.asarray(_pad_to(au, 3, 2)), jnp.asarray(_pad_to(bu, 3, 2)),
-        bm=8, bn=8, bkw=2, chunk_words=2, interpret=True))
-    got = kbit_gemm.kbit_plane_gemm_batched(a, bt)
-    np.testing.assert_array_equal(got.numpy(), want)
+    ja = jnp.asarray(_pad_to(_pad_to(a.numpy().view(np.uint32), 2, 8), 3, 2))
+    jb = jnp.asarray(_pad_to(bu, 3, 2))
+    blocks = dict(bm=8, bn=8, bkw=2, interpret=True)
+    if kernel == "vpu":
+        want = kbit_plane_gemm_batched_pallas(ja, jb, chunk_words=2, **blocks)
+        got = kbit_gemm.kbit_plane_gemm_batched(a, bt)
+    else:
+        want = kbit_mxu_gemm_batched_pallas(ja, jb, **blocks)
+        got = kbit_mxu.kbit_mxu_gemm_batched(a, bt)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want)[:, :ec])
     zero = (a == 0).all(dim=-1).all(dim=1)  # (E, ec): rows zero in all planes
     assert int(zero.sum()) == e * ec - len(live)
     assert not got[zero].any()
