@@ -719,10 +719,12 @@ def visible(kpos, q_pos, window):
 
 def parity_attn(dev) -> float:
     """K11 against its plain version over fp32 / bf16 / int8 / 1-bit pools,
-    paged (block 16, 7 entries per slot, so 32-key chunks span blocks and
-    the last one is short) and contiguous, C in {1, 4, 256}, G in {1, 4}, Dh in
-    {64, 128}, softcap and window each on and off, ragged lengths, a -1
-    entry mid-table and an unmapped slot.  Rows that see a key must agree
+    paged (block 16, 7 entries per slot, so split ranges and chunks span
+    blocks and the last one is short) and contiguous, C in {1, 4, 256}, G in
+    {1, 4}, Dh in {64, 128}, softcap and window each on and off, ragged
+    lengths, a -1 entry mid-table and an unmapped slot; then a 128-entry
+    table with short slots at C x G on both sides of the tile switch (most
+    split ranges and window stages hold no key).  Rows that see a key must agree
     within 2e-5 (unit-scale inputs, the JAX test's tolerance; bf16 pools
     too: both sides read the same bf16 values, exact in fp32, so only the
     summation order differs), every output must be finite, and the unmapped
@@ -759,11 +761,57 @@ def parity_attn(dev) -> float:
                                 if layout == "paged" and bool(got[-1].any()):
                                     raise AssertionError(
                                         f"{where}: unmapped slot not zero")
+    # a 128-entry table (the serving cache) with short ragged slots, so that
+    # most of the decode tile's split ranges and the window tile's stages
+    # hold no key, at C*G on both sides of the tile switch
+    tiles = {}
+    for tier in ATTN_TIERS:
+        for c, g in ((1, 4), (4, 4), (5, 4), (37, 4)):
+            for dh in (64, 128):
+                args, kpos = attn_case(
+                    dev, gen, tier, "paged", [37, 300, 2 * c + 3, 0], c, g, dh,
+                    bps=PAGED_CACHE_LEN // PAGED_BLOCK, kvh=2, holes=True)
+                tile = attn_tile(args)
+                for cap, window in ((None, None), (30.0, 40)):
+                    opts = dict(sm_scale=dh ** -0.5, logit_softcap=cap,
+                                window=window)
+                    got = attn_call(False, "paged", args, tier, **opts)
+                    want = attn_call(True, "paged", args, tier, **opts)
+                    torch.cuda.synchronize()
+                    where = (f"K11 {tier} long table C={c} G={g} Dh={dh} "
+                             f"cap={cap} window={window} ({tile})")
+                    vis = visible(kpos, args["q_pos"], window)
+                    if not torch.isfinite(got).all():
+                        raise AssertionError(f"{where}: non-finite")
+                    e = float((got[vis] - want[vis]).abs().max())
+                    worst, n = max(worst, e), n + 1
+                    tiles[tile.split(",")[0]] = tiles.get(tile.split(",")[0], 0) + 1
+                    if e > ATTN_TOL:
+                        raise AssertionError(f"{where}: max |err| {e} > {ATTN_TOL}")
+                    if bool(got[-1].any()):
+                        raise AssertionError(f"{where}: unmapped slot not zero")
     print(f"parity: K11 at {n} cases (4 pools x 2 layouts x C 1/4/256 x G "
-          f"1/4 x Dh 64/128 x softcap x window) within {ATTN_TOL} of its "
+          f"1/4 x Dh 64/128 x softcap x window, then a 128-entry table with "
+          f"slots of 37 / 300 / 2C+3 keys at C x G 1x4 / 4x4 / 5x4 / 37x4; "
+          f"long-table cases per tile {tiles}) within {ATTN_TOL} of its "
           f"plain version on rows that see a key, unmapped slot exact zeros;"
           f" max |err| {worst:.3e}")
     return worst
+
+
+def attn_tile(args: dict) -> str:
+    """Which K11 tile a paged call takes, and the decode tile's split plan
+    (``attn_decode.window_tile`` / ``split_plan``, the C entry point's
+    rule)."""
+    from repro_torch.kernels import attn_decode as ak
+
+    b, c, kvh, g, dh = args["q"].shape
+    if ak.window_tile(c, g, dh, args["pool_k"], args["pool_v"]):
+        return "window tile"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n, keys = ak.split_plan(b * kvh, c * g, args["pool_pos"].shape[1]
+                            * args["table"].shape[1], sms)
+    return f"decode tile, {n} splits of {keys} keys"
 
 
 # --------------------------------------------------------------------------
@@ -978,7 +1026,9 @@ def timing_attn(dev) -> list:
     """K11 at the paged serving shapes — batch 4, 8 kv-heads of 64, G 4,
     a 2,048-row cache of 128 blocks of 16 per slot, all mapped as admission
     maps them, ragged lengths from the serving mix — at decode (C 1) and one
-    prefill window (C 256, the last chunk of each prompt), per pool tier.
+    prefill window (C 256, the last chunk of each prompt), per pool tier;
+    then decode at the full cache (every slot 2,048 keys long, the shape
+    ``profile_decode`` measures).  Each row names the tile and split plan.
     Each row: the kernel (pool copies cycled to overflow the L2 cache, as
     40 layers read their pools cold), the plain version, the library
     yardstick (``scaled_dot_product_attention`` on the dense gathered fp32
@@ -999,11 +1049,14 @@ def timing_attn(dev) -> list:
                                          PREFIX_LEN + TAIL_LENS[1] + 1, b)]
     sm = dh ** -0.5
     rows = []
-    for c in (1, PAGED_CHUNK):
+    shapes = [(c, "serving", lens) for c in (1, PAGED_CHUNK)]
+    shapes.append((1, "full cache", [PAGED_CACHE_LEN] * b))
+    for c, cache, lens in shapes:
         for tier in ATTN_TIERS:
             gen = torch.Generator(device=dev).manual_seed(SEED + 6)
             args, kpos = attn_case(dev, gen, tier, "paged", lens, c, g, dh,
                                    bps, kvh, holes=False)
+            tile = attn_tile(args)
             got = attn_call(False, "paged", args, tier, sm_scale=sm)
             want = attn_call(True, "paged", args, tier, sm_scale=sm)
             torch.cuda.synchronize()
@@ -1054,15 +1107,16 @@ def timing_attn(dev) -> list:
                       + 2 * args["q"].numel() * 4 + args["q_pos"].numel() * 4)
             ops = 4 * g * dh * kvh * int(adm.sum())
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS_PER_S
-            row = dict(c=c, tier=str(tier), lens=lens, max_abs_err=max_err,
+            row = dict(c=c, cache=cache, tile=tile, tier=str(tier), lens=lens,
+                       max_abs_err=max_err,
                        ms=ms, plain_ms=plain_ms,
                        library_ms=library_ms, bytes=nbytes, ops=ops,
                        bound_ms=max(t_bytes, t_ops) * 1e3,
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
                        copies=len(copies))
             rows.append(row)
-            print(f"timing K11 {tier} C={c} (B {b}, KVH {kvh}, G {g}, Dh {dh}, "
-                  f"lens {lens}) (us): kernel {ms * 1e3:.3f} plain "
+            print(f"timing K11 {tier} C={c} {cache} (B {b}, KVH {kvh}, G {g}, "
+                  f"Dh {dh}, lens {lens}; {tile}) (us): kernel {ms * 1e3:.3f} plain "
                   f"{plain_ms * 1e3:.3f} library {library_ms * 1e3:.3f} bound "
                   f"{row['bound_ms'] * 1e3:.3f} ({row['bound_by']}: "
                   f"{nbytes} bytes, {ops} flops); max |err| vs plain "
@@ -2200,17 +2254,22 @@ def profile_decode(eng, label: str, steps: int = 3) -> dict:
             by_name[evt.key] = by_name.get(evt.key, 0.0) + us / steps
     device_ms = sum(by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    # K11: every kernel of csrc/flash_decode.cu (decode tile, split
+    # combine, window tile) carries "flash_decode" in its name
+    k11_us = sum(v for k, v in by_name.items() if "flash_decode" in k)
     out = {"wall_ms_per_step": wall_ms,
            "device_ms_per_step": device_ms if by_name else None,
            "device_busy_share": device_ms / wall_ms if by_name else None,
+           "k11_us_per_step": k11_us if by_name else None,
            "top_kernels_us_per_step": [[k[:90], v] for k, v in top]}
     if not by_name:
         print(f"profile {label}: wall {wall_ms:.4f} ms/step; device time "
               "not measured (the profiler recorded no device events)")
     else:
         print(f"profile {label}: wall {wall_ms:.4f} ms/step, device "
-              f"{device_ms:.4f} ms/step, busy share {device_ms / wall_ms:.4f};"
-              " top: " + "; ".join(f"{k[:60]} {v:.1f}us" for k, v in top))
+              f"{device_ms:.4f} ms/step, busy share {device_ms / wall_ms:.4f}, "
+              f"K11 {k11_us:.1f}us; top: "
+              + "; ".join(f"{k[:60]} {v:.1f}us" for k, v in top))
     return out
 
 
@@ -2256,7 +2315,8 @@ def main() -> int:
     attn_rows = timing_attn(dev)
     err["flash_decode"] = max(err["flash_decode"],
                               *(r["max_abs_err"] for r in attn_rows))
-    decode = next(r for r in attn_rows if r["c"] == 1 and r["tier"] == "fp32")
+    decode = next(r for r in attn_rows if r["c"] == 1 and r["tier"] == "fp32"
+                  and r["cache"] == "serving")
     totals["flash_decode"] = {k: decode[k] for k in (
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     print(f"timing phase {time.perf_counter() - t0:.3f}s")

@@ -52,9 +52,10 @@ _PROTOTYPES = {
     # the expert-batched forms: (a, b, out, e, m, n, kw, ka, kb)
     "repro_kbit_plane_gemm_batched": 3 * [_PTRS] + 4 * [_DIMS] + 2 * [_INT],
     "repro_kbit_mxu_gemm_batched": 3 * [_PTRS] + 4 * [_DIMS] + 2 * [_INT],
-    # (table, q, q_pos, pool_k, pool_v, k_scale, v_scale, pool_pos, out,
-    #  b, c, kvh, g, dh, nb, bs, bps, kind, sm_scale, cap, causal, window)
-    "repro_flash_decode": 9 * [_PTRS] + 8 * [_DIMS] + [_INT] + 2 * [_FLOAT]
+    # (table, q, q_pos, pool_k, pool_v, k_scale, v_scale, pool_pos, out, ws,
+    #  b, c, kvh, g, dh, nb, bs, bps, n_splits, split_keys, kind, sm_scale,
+    #  cap, causal, window)
+    "repro_flash_decode": 10 * [_PTRS] + 10 * [_DIMS] + [_INT] + 2 * [_FLOAT]
                           + 2 * [_INT],
 }
 

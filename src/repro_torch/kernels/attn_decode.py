@@ -29,6 +29,14 @@ entry-by-entry online softmax in PyTorch ops — on a CPU tensor.  The
 contiguous layout reshapes (free) to a pool of ``L / t`` tiles per slot
 under an arange table and runs the same kernel.
 
+The kernel has two tiles, chosen from static shapes (:func:`window_tile`):
+a split-KV decode tile for C*G <= ``DECODE_TILE_ROWS``, whose key ranges
+(:func:`split_plan`) this wrapper sizes from B*KVH and the table span and
+whose per-split partials a second kernel merges in split order, and a
+register-blocked window tile for prefill windows.  The split plan's plain
+counterparts, :func:`flash_decode_split_plain` (one range's partial) and
+:func:`combine_splits_plain` (the merge), are for tests.
+
 Numerics against the gather oracle: scores and softmax in fp32 with the
 same scale / softcap / mask; only the summation order differs.  A row with
 no visible key at all is junk on every path (callers never read it): the
@@ -39,6 +47,8 @@ and emits zeros.  A slot with no mapped entry emits exact zeros on both.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import _cuda
@@ -47,6 +57,13 @@ NEG_INF = -2.0e38
 
 DEFAULT_CTG_TILE = 512  # contiguous tile (tokens per identity-table block)
 DEFAULT_PGD_SPB = 4  # the JAX kernel's paged table entries per split step
+
+# the CUDA kernel's tiles (csrc/flash_decode.cu: kDecodeRows, kMaxSplits, kRG)
+DECODE_TILE_ROWS = 16  # C*G at or below which the split-KV decode tile runs
+MAX_SPLITS = 64
+SPLIT_ROWS = 4  # query rows per decode-tile block
+SPLIT_BLOCKS_PER_SM = 4  # decode-tile blocks the split plan aims for per SM
+SPLIT_KEY_GRAIN = 32  # a planned range is a multiple of 32 keys
 
 # storage tier -> the kernel's pool kind (fp pools by dtype)
 _KIND = {torch.float32: 0, torch.bfloat16: 1, 8: 2, 1: 3}
@@ -191,6 +208,120 @@ def flash_decode_paged_plain(table, q, q_pos, pool_k, pool_v, pool_pos,
 
 
 # ---------------------------------------------------------------------------
+# The decode tile's split plan and its plain counterparts
+# ---------------------------------------------------------------------------
+
+
+def window_tile(c: int, g: int, dh: int, pool_k: torch.Tensor,
+                pool_v: torch.Tensor) -> bool:
+    """True when the kernel takes its window tile, false for the split-KV
+    decode tile — the C entry point's rule, from static shapes: C*G above
+    ``DECODE_TILE_ROWS``, Dh a multiple of 16 up to 128, both pools 16-byte
+    aligned."""
+    return (c * g > DECODE_TILE_ROWS and dh % 16 == 0 and dh <= 128
+            and pool_k.data_ptr() % 16 == 0 and pool_v.data_ptr() % 16 == 0)
+
+
+def split_plan(pairs: int, rows: int, span: int, sms: int,
+               splits: int | None = None) -> tuple[int, int]:
+    """(n_splits, keys per split) of the decode tile over a table span of
+    ``span`` keys, for ``pairs`` = B*KVH and ``rows`` = C*G query rows:
+    enough ranges that the grid (pairs x ranges x row groups of
+    ``SPLIT_ROWS``) holds ``SPLIT_BLOCKS_PER_SM`` blocks per SM, each a
+    multiple of ``SPLIT_KEY_GRAIN`` keys, at most ``MAX_SPLITS``.  Split s
+    covers keys ``[s * keys, min(span, (s + 1) * keys))``.  ``splits``
+    forces the count (the ranges are then ``ceil(span / splits)`` keys, as
+    the tests use)."""
+    if splits is None:
+        blocks = pairs * -(-rows // SPLIT_ROWS)
+        want = max(1, min(MAX_SPLITS, -(-SPLIT_BLOCKS_PER_SM * sms // blocks)))
+        keys = -(-max(span, 1) // want)
+        keys = -(-keys // SPLIT_KEY_GRAIN) * SPLIT_KEY_GRAIN
+    else:
+        if not 1 <= splits <= MAX_SPLITS:
+            raise ValueError(f"splits must be in [1, {MAX_SPLITS}], got {splits}")
+        keys = -(-max(span, 1) // splits)
+    return -(-max(span, 1) // keys), keys
+
+
+def split_ranges(n_splits: int, keys: int, span: int) -> list[tuple[int, int]]:
+    """The key ranges ``[lo, hi)`` of a :func:`split_plan`, in split order."""
+    return [(s * keys, min(span, (s + 1) * keys)) for s in range(n_splits)]
+
+
+def flash_decode_split_plain(table, q, q_pos, pool_k, pool_v, pool_pos,
+                             k_scale=None, v_scale=None, *,
+                             keys: tuple[int, int], kv_bits: int | None = None,
+                             sm_scale: float,
+                             logit_softcap: float | None = None,
+                             causal: bool = True, window: int | None = None):
+    """One split's partial: the plain recurrence over the table span's keys
+    ``[lo, hi)`` only (keys outside score ``NEG_INF``, as masked keys do).
+    Returns the unnormalised (m, l, acc), (B, KVH, C*G, 1 | Dh) fp32."""
+    lo, hi = keys
+    b, c, kvh, g, dh = q.shape
+    bs = pool_pos.shape[1]
+    cg = c * g
+    qt = q.to(torch.float32).permute(0, 2, 1, 3, 4).reshape(b, kvh, cg, dh)
+    qp = q_pos.repeat_interleave(g, dim=1).view(b, 1, cg, 1)
+    dev = q.device
+    m = torch.full((b, kvh, cg, 1), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, kvh, cg, 1), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, kvh, cg, dh), dtype=torch.float32, device=dev)
+    for jj in range(lo // bs, -(-hi // bs)):
+        blk = table[:, jj]
+        mapped = (blk >= 0).view(b, 1, 1, 1)
+        if not bool(mapped.any()):
+            continue
+        safe = blk.clamp(min=0).long()
+        kt = _dequant_tile(kv_bits, pool_k[safe],
+                           None if k_scale is None else k_scale[safe], dh)
+        vt = _dequant_tile(kv_bits, pool_v[safe],
+                           None if v_scale is None else v_scale[safe], dh)
+        kp = pool_pos[safe].view(b, 1, 1, -1)
+        key = jj * bs + torch.arange(bs, device=dev)
+        s = torch.einsum("bhrd,bkhd->bhrk", qt, kt) * sm_scale
+        if logit_softcap is not None:
+            s = logit_softcap * torch.tanh(s / logit_softcap)
+        valid = (kp >= 0) & ((key >= lo) & (key < hi)).view(1, 1, 1, -1)
+        if causal:
+            valid = valid & (kp <= qp)
+        if window is not None:
+            valid = valid & (kp > qp - window)
+        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l_new = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc_new = acc * alpha + torch.einsum("bhrk,bkhd->bhrd", p, vt)
+        m = torch.where(mapped, m_new, m)
+        l = torch.where(mapped, l_new, l)
+        acc = torch.where(mapped, acc_new, acc)
+    return m, l, acc
+
+
+def combine_splits_plain(parts, c: int, g: int) -> torch.Tensor:
+    """Merge split partials ``[(m, l, acc), ...]`` (from
+    :func:`flash_decode_split_plain`) as the kernel's combine does: M = the
+    max of m over splits with l > 0, weights exp(m - M) (0 where l == 0),
+    sums taken in split order; out = sum w*acc / max(sum w*l, 1e-37).
+    Returns (B, C, KVH, G, Dh) fp32."""
+    m = torch.stack([p[0] for p in parts])
+    l = torch.stack([p[1] for p in parts])
+    has = l > 0
+    top = torch.where(has, m, torch.full_like(m, NEG_INF)).amax(dim=0)
+    w = torch.where(has, torch.exp(m - top), torch.zeros_like(m))
+    ls = torch.zeros_like(parts[0][1])
+    acc = torch.zeros_like(parts[0][2])
+    for s, part in enumerate(parts):
+        ls = ls + w[s] * part[1]
+        acc = acc + w[s] * part[2]
+    out = acc / torch.clamp(ls, min=1e-37)
+    b, kvh, _, dh = out.shape
+    return out.view(b, kvh, c, g, dh).permute(0, 2, 1, 3, 4).contiguous()
+
+
+# ---------------------------------------------------------------------------
 # The wrappers
 # ---------------------------------------------------------------------------
 
@@ -248,6 +379,11 @@ def _check(table, q, q_pos, pool_k, pool_v, pool_pos, k_scale, v_scale,
     return kind
 
 
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _launch(table, q, q_pos, pool_k, pool_v, pool_pos, k_scale, v_scale,
             kind, sm_scale, cap, causal, window) -> torch.Tensor:
     b, c, kvh, g, dh = q.shape
@@ -255,6 +391,16 @@ def _launch(table, q, q_pos, pool_k, pool_v, pool_pos, k_scale, v_scale,
     if out.numel() == 0:
         return out
     nb, bs = pool_pos.shape
+    bps = table.shape[1]
+    ws = None
+    if window_tile(c, g, dh, pool_k, pool_v):
+        n_splits = keys = 0
+    else:
+        n_splits, keys = split_plan(b * kvh, c * g, bs * bps,
+                                    _sm_count(q.device.index))
+        if n_splits > 1:  # the per-split partials: (m, l) then acc
+            ws = torch.empty(b * kvh * n_splits * c * g * (dh + 2),
+                             dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         rc = _cuda.lib().repro_flash_decode(
             table.data_ptr(), q.data_ptr(), q_pos.data_ptr(),
@@ -262,7 +408,8 @@ def _launch(table, q, q_pos, pool_k, pool_v, pool_pos, k_scale, v_scale,
             0 if k_scale is None else k_scale.data_ptr(),
             0 if v_scale is None else v_scale.data_ptr(),
             pool_pos.data_ptr(), out.data_ptr(),
-            b, c, kvh, g, dh, nb, bs, table.shape[1],
+            0 if ws is None else ws.data_ptr(),
+            b, c, kvh, g, dh, nb, bs, bps, n_splits, keys,
             kind, sm_scale, 0.0 if cap is None else cap, int(causal),
             0 if window is None else window,
             _cuda.stream_handle(q.device))
@@ -291,11 +438,15 @@ def flash_decode_paged(
 ) -> torch.Tensor:
     """Fused paged flash-decode attention: (B, C, KVH, G, Dh) fp32 out.
 
-    Reads the paged pool through ``table`` — no dense gather.  The CUDA
-    kernel walks each slot's table straight through in 32-key chunks.
-    ``blocks_per_step`` (default ``min(DEFAULT_PGD_SPB, bps)``) is the JAX
-    kernel's split knob: it is validated for API parity and does not reach
-    the kernel, whose grid has no split axis."""
+    Reads the paged pool through ``table`` — no dense gather.  At C*G <=
+    ``DECODE_TILE_ROWS`` the CUDA kernel splits the table span into the
+    key ranges of :func:`split_plan` (sized from B*KVH and the span, never
+    from lengths), each walked straight through the table, and merges the
+    ranges in split order; above it, one block per 64 query rows walks the
+    whole span.  ``blocks_per_step`` (default ``min(DEFAULT_PGD_SPB,
+    bps)``) is the JAX kernel's split knob, table entries per grid step: it
+    is validated for API parity and does not reach the kernel, whose
+    ranges are whole keys, not table entries."""
     spb = blocks_per_step or min(DEFAULT_PGD_SPB, table.shape[1])
     kind = _check(table, q, q_pos, pool_k, pool_v, pool_pos, k_scale, v_scale,
                   block_size, kv_bits, window, spb)
@@ -376,10 +527,11 @@ def flash_decode_contig_plain(q, q_pos, k, v, slot_pos, k_scale=None,
 def select_attn_tiles(b: int, c: int, cache_len: int, dh: int,
                       layout: str) -> int:
     """The split knob for a decode shape: ``layout`` "ctg" returns the
-    contiguous tile, "pgd" the JAX kernel's paged table entries per split
-    step (kept for API parity: the CUDA kernel has no split axis).  The
-    port has no tuned-tile cache yet (the autotune is ROADMAP slice 7), so
-    these are the defaults."""
+    contiguous tile (the identity table's block, which does reach the
+    kernel), "pgd" the JAX kernel's paged table entries per split step
+    (kept for API parity: the CUDA kernel takes its split ranges from
+    :func:`split_plan` instead).  The port has no tuned-tile cache yet (the
+    autotune is ROADMAP slice 7), so these are the defaults."""
     del b, c, cache_len, dh
     if layout not in ("ctg", "pgd"):
         raise ValueError(f"layout must be 'ctg' or 'pgd', got {layout!r}")

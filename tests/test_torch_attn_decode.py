@@ -222,3 +222,86 @@ def test_wrapper_refuses_bad_operands():
         ak.flash_decode_paged(**half, block_size=BS, sm_scale=0.25)
     with pytest.raises(TypeError, match="float32"):
         ak.flash_decode_paged(**{**inp, "q": inp["q"].double()}, **call)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA decode tile's split plan, held against the plain versions: each
+# range's partial from the plain recurrence, merged in split order as the
+# kernel's combine does, must equal the one-pass plain version and JAX.
+# ---------------------------------------------------------------------------
+
+SPLIT_TOL = dict(rtol=0, atol=1e-5)
+_JAX_REF = {}  # (kv_bits, cap, window) -> the JAX output on _split_inputs
+
+
+def _split_inputs(kv_bits):
+    return _paged_inputs(np.random.default_rng([7, kv_bits or 0]), kv_bits,
+                         2, 2, 16)
+
+
+@pytest.mark.parametrize("splits", [None, 1, 2, 3, 7, 20])
+@pytest.mark.parametrize("pairs,rows,span", [(32, 4, 2048), (6, 8, 20),
+                                             (1, 16, 37), (512, 4, 4096)])
+def test_split_plan_covers_span_once(splits, pairs, rows, span):
+    n, keys = ak.split_plan(pairs, rows, span, sms=132, splits=splits)
+    ranges = ak.split_ranges(n, keys, span)
+    covered = np.zeros(span, np.int32)
+    for lo, hi in ranges:
+        assert lo < hi
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+    assert [r[0] for r in ranges] == sorted(r[0] for r in ranges)
+    assert 1 <= n <= ak.MAX_SPLITS
+    if splits is None:
+        assert keys % ak.SPLIT_KEY_GRAIN == 0
+    else:
+        assert n <= splits
+
+
+def test_split_plan_at_the_serving_shapes():
+    """B 4 x 8 kv-heads over a 2,048-key span on 132 SMs: 16 ranges of 128
+    keys (4 blocks per SM); a batch that fills the card alone takes one."""
+    assert ak.split_plan(32, 4, 2048, 132) == (16, 128)
+    assert ak.split_plan(4 * 132, 4, 2048, 132) == (1, 2048)
+    assert ak.split_plan(32, 16, 2048, 132) == (5, 416)
+    with pytest.raises(ValueError, match="splits"):
+        ak.split_plan(32, 4, 2048, 132, splits=0)
+
+
+def test_window_tile_rule():
+    pool = torch.zeros(64)
+    assert not ak.window_tile(1, 4, 64, pool, pool)
+    assert not ak.window_tile(4, 4, 64, pool, pool)  # C*G 16: decode tile
+    assert ak.window_tile(37, 4, 64, pool, pool)
+    assert ak.window_tile(5, 4, 128, pool, pool)
+    assert not ak.window_tile(37, 4, 256, pool, pool)  # Dh > 128
+    assert not ak.window_tile(37, 4, 24, pool, pool)  # Dh % 16
+    assert not ak.window_tile(37, 4, 64, pool[1:], pool)  # unaligned pool
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 7])
+@pytest.mark.parametrize("kv_bits", [None, 8, 1])
+@pytest.mark.parametrize("cap,window", [(None, None), (4.0, 6)])
+def test_split_partials_merged_in_order_match_plain_and_jax(splits, kv_bits,
+                                                            cap, window):
+    inp = _split_inputs(kv_bits)
+    t = {k: None if v is None else torch.from_numpy(v) for k, v in inp.items()}
+    opts = dict(kv_bits=kv_bits, sm_scale=16 ** -0.5, logit_softcap=cap,
+                causal=True, window=window)
+    span = BS * BPS
+    n, keys = ak.split_plan(B * KVH, 4, span, sms=132, splits=splits)
+    assert n == splits
+    parts = [ak.flash_decode_split_plain(**t, keys=r, **opts)
+             for r in ak.split_ranges(n, keys, span)]
+    got = ak.combine_splits_plain(parts, 2, 2).numpy()
+    plain = ak.flash_decode_paged_plain(**t, **opts).numpy()
+    key = (kv_bits, cap, window)
+    if key not in _JAX_REF:
+        j = {k: None if v is None else jnp.asarray(v) for k, v in inp.items()}
+        _JAX_REF[key] = np.asarray(jak.flash_decode_paged(
+            block_size=BS, interpret=True, **j, **opts))
+    vis = _visible(inp, "pgd", True, window)
+    assert vis.any() and not vis.all()
+    np.testing.assert_allclose(got[vis], plain[vis], **SPLIT_TOL)
+    np.testing.assert_allclose(got[vis], _JAX_REF[key][vis], **SPLIT_TOL)
+    np.testing.assert_array_equal(got[2], 0.0)  # slot 2: no mapped block

@@ -443,19 +443,24 @@ def test_smoke_serving_w4a4_vpu_equals_mxu_on_card(cuda):
         np.testing.assert_array_equal(streams["vpu"][rid], streams["mxu"][rid])
 
 
-def _paged_case(dev, tier, b, c, g, dh, bs=16, bps=7, kvh=2, seed=0):
+def _paged_case(dev, tier, b, c, g, dh, bs=16, bps=7, kvh=2, seed=0,
+                lens=None):
     """A shuffled pool holding ragged slots (slot 0 with a -1 entry in the
     middle of its table, the last slot unmapped), stale positions in
     unmapped blocks, and q at each slot's frontier.  ``tier``: "fp32",
-    "bf16", 8 or 1."""
+    "bf16", 8 or 1.  ``lens``: the slots' lengths (default: slot 0 full,
+    the others random)."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     nb = b * bps + 3
     table = torch.randperm(nb, generator=gen, device=dev)[:b * bps]
     table = table.view(b, bps).to(torch.int32)
     table[0, bps // 2] = -1
     table[-1] = -1
-    lens = torch.randint(1, bps * bs, (b,), generator=gen, device=dev)
-    lens[0] = bps * bs
+    if lens is None:
+        lens = torch.randint(1, bps * bs, (b,), generator=gen, device=dev)
+        lens[0] = bps * bs
+    else:
+        lens = torch.tensor(lens, device=dev)
     pool_pos = torch.randint(0, bps * bs, (nb, bs), generator=gen,
                              device=dev, dtype=torch.int32)
     p = torch.arange(bps * bs, device=dev, dtype=torch.int32).view(bps, bs)
@@ -478,19 +483,55 @@ def _paged_case(dev, tier, b, c, g, dh, bs=16, bps=7, kvh=2, seed=0):
                 pool_pos=pool_pos, k_scale=ks, v_scale=vs), bs
 
 
+def _split_keys(dev, b, kvh, c, g, span):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return attn_decode.split_plan(b * kvh, c * g, span, sms)[1]
+
+
+def _case_lens(dev, kind, b, c, g, bs, bps, kvh=2):
+    """None (random), "short" (slots far shorter than a 128-entry table, so
+    most split ranges hold no key) or "edges" (lengths on split-range
+    edges of the kernel's plan, and one key either side)."""
+    if kind == "short":
+        return [37, 70, 5, 0][:b]
+    if kind == "edges":
+        k = _split_keys(dev, b, kvh, c, g, bs * bps)
+        return [k, 2 * k + 1, 3 * k - 1, 0][:b]
+    return None
+
+
+def _visible_rows(inp, b, window):
+    kpos = torch.where(inp["table"][:, :, None] >= 0,
+                       inp["pool_pos"][inp["table"].clamp(min=0).long()], -1)
+    kp, qp = kpos.view(b, 1, -1), inp["q_pos"][:, :, None]
+    vis = (kp >= 0) & (kp <= qp)
+    if window is not None:
+        vis &= kp > qp - window
+    return vis.any(-1)
+
+
+# C*G on both sides of the tile switch (16: decode tile; 20, 148: window
+# tile), Dh 64 / 128 on both tiles, block 4 (a 32-key split range spans 8
+# table entries), a 128-entry table with short ragged slots, and lengths on
+# the split ranges' edges
 @pytest.mark.parametrize("tier", ["fp32", "bf16", 8, 1])
-@pytest.mark.parametrize("c,g,dh,bs,bps", [
-    (1, 4, 64, 16, 7), (4, 1, 128, 16, 7), (37, 4, 64, 16, 7),
-    (4, 4, 64, 4, 13),  # each 32-key chunk spans 8 table entries
+@pytest.mark.parametrize("c,g,dh,bs,bps,lens", [
+    (1, 4, 64, 16, 7, None), (4, 1, 128, 16, 7, None),
+    (37, 4, 64, 16, 7, None), (4, 4, 64, 4, 13, None),
+    (5, 4, 64, 16, 7, None), (1, 4, 128, 16, 7, None),
+    (37, 4, 128, 16, 7, None), (1, 4, 64, 16, 128, "short"),
+    (1, 4, 64, 16, 128, "edges"), (5, 4, 64, 16, 128, "short"),
 ])
 @pytest.mark.parametrize("cap,window", [(None, None), (30.0, 40)])
-def test_flash_decode_kernel_matches_plain(cuda, tier, c, g, dh, bs, bps, cap,
-                                           window):
+def test_flash_decode_kernel_matches_plain(cuda, tier, c, g, dh, bs, bps, lens,
+                                           cap, window):
     """K11 against its plain version on the card: rows that see a key
     within atol 2e-5 (unit-scale inputs; the bf16 pool too, whose values
     both sides read exactly in fp32), the unmapped slot exact zeros."""
-    inp, bs = _paged_case(cuda, tier, 3, c, g, dh, bs=bs, bps=bps,
-                          seed=c + dh)
+    b = 4 if lens else 3
+    inp, bs = _paged_case(cuda, tier, b, c, g, dh, bs=bs, bps=bps,
+                          seed=c + dh,
+                          lens=_case_lens(cuda, lens, b, c, g, bs, bps))
     kv_bits = tier if isinstance(tier, int) else None
     opts = dict(block_size=bs, kv_bits=kv_bits, sm_scale=dh ** -0.5,
                 logit_softcap=cap, window=window)
@@ -498,27 +539,43 @@ def test_flash_decode_kernel_matches_plain(cuda, tier, c, g, dh, bs, bps, cap,
     torch.cuda.synchronize()
     want = attn_decode.flash_decode_paged_plain(
         **inp, **{k: v for k, v in opts.items() if k != "block_size"})
-    kpos = torch.where(inp["table"][:, :, None] >= 0,
-                       inp["pool_pos"][inp["table"].clamp(min=0).long()], -1)
-    kp, qp = kpos.view(3, 1, -1), inp["q_pos"][:, :, None]
-    vis = (kp >= 0) & (kp <= qp)
-    if window is not None:
-        vis &= kp > qp - window
-    vis = vis.any(-1)
+    vis = _visible_rows(inp, b, window)
+    assert torch.isfinite(got).all()
     torch.testing.assert_close(got[vis], want[vis], rtol=0, atol=2e-5)
     assert torch.equal(got[-1], torch.zeros_like(got[-1]))
 
 
 @pytest.mark.parametrize("tier", ["fp32", 8, 1])
-def test_flash_decode_contig_and_launch_count(cuda, tier):
+@pytest.mark.parametrize("c,bps", [(1, 128), (1, 7), (64, 40)])
+def test_flash_decode_repeats_bit_for_bit(cuda, tier, c, bps):
+    """Two calls on the same inputs give the same bits: the decode tile's
+    split partials (many ranges at 128 entries, one at 7) merge in split
+    order and the window tile sums in a fixed order; no float atomics."""
+    inp, bs = _paged_case(cuda, tier, 4, c, 4, 64, bps=bps, kvh=8, seed=5)
+    opts = dict(block_size=bs, kv_bits=tier if isinstance(tier, int) else None,
+                sm_scale=0.125, logit_softcap=30.0)
+    first = attn_decode.flash_decode_paged(**inp, **opts)
+    second = attn_decode.flash_decode_paged(**inp, **opts)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    vis = _visible_rows(inp, 4, None)
+    want = attn_decode.flash_decode_paged_plain(
+        **inp, **{k: v for k, v in opts.items() if k != "block_size"})
+    torch.testing.assert_close(first[vis], want[vis], rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("tier", ["fp32", 8, 1])
+@pytest.mark.parametrize("cache_len", [1536, 2048])
+def test_flash_decode_contig_and_launch_count(cuda, tier, cache_len):
     """The contiguous route reaches the same kernel through an identity
-    table, and each call counts one launch."""
+    table of 512-row blocks (3 or 4 entries), and each call counts one
+    launch."""
     kv_bits = tier if isinstance(tier, int) else None
     kv = attention.ContiguousKVCache(kv_bits=kv_bits)
     cfg = attention.AttnConfig(d_model=256, n_heads=8, n_kv_heads=2,
                                d_head=64, fused_attn=True, kv_bits=kv_bits)
     gen = torch.Generator(device=cuda).manual_seed(1)
-    cache = kv.init(2, cfg, 1536, torch.float32, cuda)
+    cache = kv.init(2, cfg, cache_len, torch.float32, cuda)
     k = torch.randn((2, 1000, 2, 64), generator=gen, device=cuda)
     v = torch.randn((2, 1000, 2, 64), generator=gen, device=cuda)
     pos = torch.arange(1000, device=cuda, dtype=torch.int32).expand(2, 1000)
