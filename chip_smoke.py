@@ -27,7 +27,10 @@ Phases (any failure exits non-zero before the result line):
    (K7) and int8-unpack (K8) GEMMs exactly at E 1/3/64, 1/24/77 bucket
    rows, N 1408/2048/33 and Kw 44/64/1/5; K2/K3 and (at E 2) K7/K8 also
    over K3's tile edges, M 1-576 x N 17-2047 x Kw 1-257 (``TILE_CASES``),
-   with K3 == 32*Kw - 2*K2 and K8 == 32*Kw - 2*K7 at every case; and
+   with K3 == 32*Kw - 2*K2 and K8 == 32*Kw - 2*K7 at every case; K2/K7
+   once more at each tile and split plan of their decode / prefill tiles,
+   on operands at a 4-byte offset, on all-zero / all-ones words, and twice
+   (bit for bit); and
    ``quant_gemm_grouped`` on the card == on the CPU (one stack and up +
    gate, full and tight capacity, the route-first prologue); the
    expert-batched plane popcount (K9) and code-lane ``mma`` (K10) GEMMs
@@ -47,7 +50,9 @@ Phases (any failure exits non-zero before the result line):
    per pool tier, with the least time the card could take (``bound_ms``:
    for a GEMM, that of its function, the integer dot of the codes, on the
    int8 tensor cores, whichever kernel computes it; K2/K5's popcount
-   ceiling is printed beside it; for K11 the admitted rows' bytes or its
+   ceiling is printed beside it, and K2/K7's carry-save ceiling and tile
+   plan; K2 summed per granite layer at decode and at prefill; for K11 the
+   admitted rows' bytes or its
    fp32 operations); K7 / K8 (1 bit) and K9 / K10 (w4a4) at
    deepseek-moe-16b's expert GEMMs (64 experts; 24 bucket rows at decode,
    576 at the mix's largest prefill) beside a bf16 ``torch.bmm`` yardstick,
@@ -124,6 +129,8 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT8_OPS_PER_S = 1979e12  # H100 SXM data sheet, dense int8 tensor cores
 POPC_PER_SM_PER_CLK = 16  # CUDA C++ Programming Guide throughput table, cc 9.0
+# popcounts per word pair of K2 / K7's carry-save fold (popc8: 8 words in 4)
+CSA_POPC_PER_WORD = 0.5
 
 # granite-3-2b's packed GEMMs, (name, N, K), in the order a layer runs them
 LAYER_GEMMS = (("q", 2048, 2048), ("k", 512, 2048), ("v", 512, 2048),
@@ -385,6 +392,87 @@ def parity_kbit(dev) -> dict[str, float]:
           f"{EDGE_PLANE_PAIRS}) and {len(edges) - len(TILE_CASES)} zero-row "
           f"cases: equal to their plain versions and K5 == K6, exactly "
           f"(int32); S == 0 on every row zero in all planes")
+    return err
+
+
+def parity_xnor(dev) -> dict[str, float]:
+    """K2 / K7 exactly against their plain versions at each tile and plan
+    of csrc/xnor_mismatch.cu (as tests/test_torch_gpu.py): M around the
+    decode tile's 32 rows with small N (row groups), N off the 16-row warp
+    tile, ragged Kw, granite's GEMMs at the rows that give every split
+    count, deepseek-moe-16b's expert GEMMs at 24 and 576 bucket rows;
+    operands one word into a buffer (4-byte, not 16-byte aligned); words
+    all zero or all ones (sums 0 or 32*Kw); and two calls on the same
+    inputs, which must give the same bits."""
+    from repro_torch.kernels import xnor_gemm
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def words(shape):
+        return torch.randint(-2**31, 2**31, shape, generator=gen, device=dev,
+                             dtype=torch.int64).to(torch.int32)
+
+    def run(a, b):
+        if a.dim() == 3:
+            return (xnor_gemm.xnor_mismatch_batched(a, b),
+                    xnor_gemm.xnor_mismatch_batched_plain(a, b),
+                    "xnor_mismatch_batched")
+        return (xnor_gemm.xnor_mismatch(a, b),
+                xnor_gemm.xnor_mismatch_plain(a, b), "xnor_mismatch")
+
+    edges = [(m, n, kw) for m in (31, 32, 33, 64, 65)
+             for n, kw in ((17, 64), (40, 44), (100, 9), (250, 16))]
+    cases = [(1, m, n, kw) for m, n, kw in edges]
+    cases += [(3, m, n, kw) for m, n, kw in edges]
+    cases += [(1, m, n, k // 32) for m in (1, 4, 8, 32, 96, PREFILL_M)
+              for _, n, k in LAYER_GEMMS]
+    cases += [(MOE_EXPERTS, ec, n, k // 32)
+              for ec in (MOE_DECODE_EC, MOE_PREFILL_EC) for _, n, k in MOE_GEMMS]
+    err = {"xnor_mismatch": 0.0, "xnor_mismatch_batched": 0.0}
+    plans = set()
+    for e, m, n, kw in cases:
+        lead = () if e == 1 else (e,)
+        a, b = words((*lead, m, kw)), words((*lead, n, kw))
+        got, want, name = run(a, b)
+        again = run(a, b)[0]
+        torch.cuda.synchronize()
+        check_exact({name: [(got, want)]}, err, f"E={e} M={m} N={n} Kw={kw}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name} E={e} M={m} N={n} Kw={kw}: two "
+                                 "calls differ")
+        p = xnor_gemm.tile_plan(e, m, n, kw, sms)
+        plans.add((p["tile"], p.get("splits"), p.get("row_groups", 1) > 1))
+    n_unaligned = n_const = 0
+    for lead in ((), (2,)):
+        for m, n, kw in ((4, 100, 64), (24, 1408, 44), (33, 17, 8),
+                         (256, 130, 20)):
+            sa, sb = (*lead, m, kw), (*lead, n, kw)
+            a = words((math.prod(sa) + 1,))[1:].view(sa)
+            b = words((math.prod(sb) + 1,))[1:].view(sb)
+            got, want, name = run(a, b)
+            torch.cuda.synchronize()
+            check_exact({name: [(got, want)]}, err, f"unaligned {sa} x {sb}")
+            n_unaligned += 1
+        for m, n, kw in ((4, 2048, 256), (24, 40, 44), (256, 130, 63)):
+            for fa, fb in ((0, -1), (-1, 0), (-1, -1), (0, 0)):
+                a = torch.full((*lead, m, kw), fa, dtype=torch.int32,
+                               device=dev)
+                b = torch.full((*lead, n, kw), fb, dtype=torch.int32,
+                               device=dev)
+                got, want, name = run(a, b)
+                torch.cuda.synchronize()
+                check_exact({name: [(got, want), (got, torch.full_like(
+                    got, 32 * kw if fa != fb else 0))]}, err,
+                    f"words {fa} x {fb} {(*lead, m, n, kw)}")
+                n_const += 1
+    splits = sorted({s for t, s, _ in plans if t == "decode"})
+    print(f"parity: K2/K7 at {len(cases)} tile-plan cases (decode tile "
+          f"splits {splits}, row groups "
+          f"{any(g for t, _, g in plans if t == 'decode')}, prefill tile "
+          f"{any(t == 'prefill' for t, _, _ in plans)}), {n_unaligned} "
+          f"unaligned and {n_const} all-zero / all-ones cases: equal to "
+          f"their plain versions exactly (int32), two calls bit for bit")
     return err
 
 
@@ -892,7 +980,9 @@ def timing(dev, popc_per_s: float) -> tuple[dict, list]:
     codes, so its bound is the larger of its bytes at the HBM rate and
     ``2*M*N*K`` int8 operations at the tensor cores' peak, whichever kernel
     computes it; the popcount kernels (K2, K5) also get the ceiling of their
-    own algorithm at the popc rate (``popc_bound_ms``).  K3 and K6 are
+    own algorithm at the popc rate (``popc_bound_ms``), and K2 its
+    carry-save ceiling (``csa_bound_ms``, 4 popcounts per 8 word pairs)
+    and its tile plan (``plan``).  K3 and K6 are
     timed again on one weight copy that stays in the L2 cache
     (``warm_ms``): a time that does not drop says device-memory bytes do
     not bound them.  The plain K5 runs ka*kb int64 popcount passes (about a
@@ -912,6 +1002,7 @@ def timing(dev, popc_per_s: float) -> tuple[dict, list]:
         "kbit_mxu_gemm": (kbit_mxu.kbit_mxu_gemm, kbit_mxu.kbit_mxu_gemm_plain),
     }
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
     for bits, (pro, popc_gemm, mma_gemm) in FAMILIES.items():
         for m in (DECODE_M, PREFILL_M):
@@ -947,6 +1038,11 @@ def timing(dev, popc_per_s: float) -> tuple[dict, list]:
                         ops_s=2 * m * n * k / INT8_OPS_PER_S)
                 row[popc_gemm]["popc_bound_ms"] = (
                     bits * bits * m * n * kw / popc_per_s * 1e3)
+                if bits == 1:  # K2: its tile plan and carry-save ceiling
+                    row[popc_gemm]["plan"] = xnor_gemm.describe_plan(
+                        xnor_gemm.tile_plan(1, m, n, kw, sms))
+                    row[popc_gemm]["csa_bound_ms"] = (
+                        row[popc_gemm]["popc_bound_ms"] * CSA_POPC_PER_WORD)
                 # K3 / K6: one weight copy, L2-resident
                 row[mma_gemm]["warm_ms"] = graph_ms(
                     fns[mma_gemm][0], [(xp, wps[0])], nw)
@@ -973,6 +1069,9 @@ def finish_row(row: dict, names, label: str) -> None:
         + f" bound {row[kn]['bound_ms'] * 1e3:.3f}"
         + ("" if "popc_bound_ms" not in row[kn]
            else f" popc ceiling {row[kn]['popc_bound_ms'] * 1e3:.3f}")
+        + ("" if "csa_bound_ms" not in row[kn]
+           else f" carry-save ceiling {row[kn]['csa_bound_ms'] * 1e3:.3f}")
+        + ("" if "plan" not in row[kn] else f" [{row[kn]['plan']}]")
         + ("" if "warm_ms" not in row[kn]
            else f" L2-warm {row[kn]['warm_ms'] * 1e3:.3f}")
         + ("" if "zero_ms" not in row[kn]
@@ -980,23 +1079,42 @@ def finish_row(row: dict, names, label: str) -> None:
         for kn in names))
 
 
+def layer_total(rows: list, kname: str, m: int) -> dict:
+    """One layer's 7 GEMM calls at ``m`` rows, summed for one kernel (K4-K6
+    at w4a4): times, the bound of the summed bytes and operations, and the
+    popcount / carry-save ceilings where the rows have them."""
+    rs = [r[kname] for r in rows
+          if r["m"] == m and r["bits"] in (1, 4) and kname in r]
+    t_bytes = sum(r["bytes"] for r in rs) / HBM_BYTES_PER_S
+    t_ops = sum(r["ops_s"] for r in rs)
+    lib = [r["library_ms"] for r in rs]
+    total = dict(ms=sum(r["ms"] for r in rs),
+                 plain_ms=sum(r["plain_ms"] for r in rs),
+                 bound_ms=max(t_bytes, t_ops) * 1e3,
+                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+                 library_ms=None if None in lib else sum(lib))
+    for key in ("popc_bound_ms", "csa_bound_ms"):
+        if all(key in r for r in rs):
+            total[key] = sum(r[key] for r in rs)
+    return total
+
+
 def decode_layer_totals(rows: list) -> dict:
     """The JSON line's numbers: one decode step of one layer (the 7 GEMMs'
     calls at M = batch), summed per kernel; K4-K6 at w4a4."""
-    totals = {}
-    for kname in ONE_BIT + K_BIT:
-        rs = [r[kname] for r in rows
-              if r["m"] == DECODE_M and r["bits"] in (1, 4) and kname in r]
-        t_bytes = sum(r["bytes"] for r in rs) / HBM_BYTES_PER_S
-        t_ops = sum(r["ops_s"] for r in rs)
-        lib = [r["library_ms"] for r in rs]
-        totals[kname] = dict(
-            ms=sum(r["ms"] for r in rs),
-            plain_ms=sum(r["plain_ms"] for r in rs),
-            bound_ms=max(t_bytes, t_ops) * 1e3,
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=None if None in lib else sum(lib))
-    return totals
+    return {kname: layer_total(rows, kname, DECODE_M)
+            for kname in ONE_BIT + K_BIT}
+
+
+def print_layer_total(label: str, t: dict) -> None:
+    print(f"{label} (us): kernel {t['ms'] * 1e3:.3f} plain "
+          f"{t['plain_ms'] * 1e3:.3f} library "
+          + ("-" if t["library_ms"] is None else f"{t['library_ms'] * 1e3:.3f}")
+          + f" bound {t['bound_ms'] * 1e3:.3f} ({t['bound_by']})"
+          + ("" if "popc_bound_ms" not in t
+             else f" popc ceiling {t['popc_bound_ms'] * 1e3:.3f}")
+          + ("" if "csa_bound_ms" not in t
+             else f" carry-save ceiling {t['csa_bound_ms'] * 1e3:.3f}"))
 
 
 def event_ms(fn, args: dict, reps: int = 3) -> float:
@@ -1163,8 +1281,8 @@ def timing_moe(dev, popc_per_s: float) -> tuple[dict, list]:
     ``2*E*rows*N*K`` int8 operations at the tensor cores' peak (the
     function is the integer dot of the codes); the popcount kernels' (K7,
     K9) own ceiling at the popc rate is printed beside it, ka*kb = 16 times
-    K7's for K9, and K8's and K10's time on one L2-resident weight stack
-    (``warm_ms``) as for K3.  Weight stacks cycle through enough copies to
+    K7's for K9, with K7's carry-save ceiling and tile plan, and K8's and
+    K10's time on one L2-resident weight stack (``warm_ms``) as for K3.  Weight stacks cycle through enough copies to
     overflow the L2 cache, as 27 MoE layers read their experts cold.
     Returns (one decode step of one MoE layer per kernel: up + gate + down,
     rows)."""
@@ -1179,6 +1297,7 @@ def timing_moe(dev, popc_per_s: float) -> tuple[dict, list]:
            "kbit_mxu_gemm_batched": (kbit_mxu.kbit_mxu_gemm_batched,
                                      kbit_mxu.kbit_mxu_gemm_batched_plain)}
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     e, rows = MOE_EXPERTS, []
     for bits, names in ((1, MOE_KERNELS), (4, MOE_KBIT_KERNELS)):
         for ec in (MOE_DECODE_EC, MOE_PREFILL_EC):
@@ -1215,6 +1334,11 @@ def timing_moe(dev, popc_per_s: float) -> tuple[dict, list]:
                         ops_s=2 * e * ec * n * k / INT8_OPS_PER_S)
                 row[names[0]]["popc_bound_ms"] = (
                     bits * bits * e * ec * n * kw / popc_per_s * 1e3)
+                if bits == 1:  # K7: its tile plan and carry-save ceiling
+                    row[names[0]]["plan"] = xnor_gemm.describe_plan(
+                        xnor_gemm.tile_plan(e, ec, n, kw, sms))
+                    row[names[0]]["csa_bound_ms"] = (
+                        row[names[0]]["popc_bound_ms"] * CSA_POPC_PER_WORD)
                 # K8 / K10: one weight stack, L2-resident
                 row[names[1]]["warm_ms"] = graph_ms(
                     fns[names[1]][0], [(a, w0)], 4 * nw)
@@ -1239,6 +1363,12 @@ def timing_moe(dev, popc_per_s: float) -> tuple[dict, list]:
             bound_ms=max(t_bytes, t_ops) * 1e3,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=sum(c * r["library_ms"] for c, r in rs))
+        for key in ("popc_bound_ms", "csa_bound_ms"):
+            if all(key in r for _, r in rs):
+                totals[kname][key] = sum(c * r[key] for c, r in rs)
+    print_layer_total("timing K7 per MoE decode layer (up + gate + down, "
+                      f"{MOE_DECODE_EC} bucket rows)",
+                      totals["xnor_mismatch_batched"])
     return totals, rows
 
 
@@ -2306,10 +2436,18 @@ def main() -> int:
     err.update(parity_kbit(dev))
     err["flash_decode"] = parity_attn(dev)
     err.update(parity_moe(dev))
+    for name, e in parity_xnor(dev).items():
+        err[name] = max(err[name], e)
     err.update(parity_moe_kbit(dev))
     print(f"parity phase {time.perf_counter() - t0:.3f}s")
     t0 = time.perf_counter()
     totals, rows = timing(dev, popc_per_s)
+    k2_prefill = layer_total(rows, "xnor_mismatch", PREFILL_M)
+    print_layer_total(f"timing K2 per granite decode layer (7 GEMMs, "
+                      f"M={DECODE_M})", totals["xnor_mismatch"])
+    print_layer_total(f"timing K2 per granite prefill layer (7 GEMMs, "
+                      f"M={PREFILL_M}; library = bf16 torch.matmul)",
+                      k2_prefill)
     moe_totals, moe_rows = timing_moe(dev, popc_per_s)
     totals.update(moe_totals)
     attn_rows = timing_attn(dev)
@@ -2350,6 +2488,7 @@ def main() -> int:
         "moe_timing_rows": moe_rows, "attention_timing_rows": attn_rows,
         "kernel_totals_decode_layer (K4-K6 at w4a4, K11 fp32 pool, K7/K8 "
         "and K9/K10 (w4a4) one MoE layer)": totals,
+        "xnor_mismatch_prefill_layer": k2_prefill,
         "serving": serve_summary,
         "launches": launches}, indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -7,7 +7,12 @@ words packed along K — core/bitpack.py) and return raw int32 outputs that
 
 ``xnor_mismatch`` (backend ``vpu``)
     ``sum_w popcount(a ^ b)``; ``dot = k_true - 2 * mismatches``.
-    CUDA: ``csrc/xnor_mismatch.cu`` (shared-memory word tiles + ``__popc``).
+    CUDA: ``csrc/xnor_mismatch.cu`` (XOR + ``__popc`` on the CUDA cores,
+    carry-save: 8 words in 4 popcounts).  Two tiles, chosen by the C entry
+    point (:func:`tile_plan` reads its plan back): up to 32 activation rows a decode tile (16
+    weight rows a warp, each weight word read once per call through a
+    ``cp.async`` ring, K split among a block's warps where N is small),
+    above that a 64 x 64 prefill tile of 4 x 4 sums per thread.
 
 ``xnor_dot_mxu`` (backend ``mxu``)
     unpack every word to ±1 int8 and contract: the *padded* dot, inflated
@@ -23,9 +28,8 @@ words packed along K — core/bitpack.py) and return raw int32 outputs that
 
 On a CUDA tensor each wrapper launches its kernel (or raises); on a CPU
 tensor it runs its ``*_plain`` version, which repeats the kernel's integer
-algorithm in PyTorch ops (int64 SWAR popcount / ±1 unpack).  Both raw
-outputs are K-partial-safe: integer partials over disjoint Kw slices sum
-exactly.
+algorithm in PyTorch ops (int64 SWAR popcount / ±1 unpack).  Both raw outputs are K-partial-safe: integer partials over
+disjoint Kw slices sum exactly.
 
 ``xnor_mismatch_batched`` / ``xnor_dot_mxu_batched`` are the same two
 functions over a leading expert axis, ``(E, M, Kw) x (E, N, Kw) -> (E, M,
@@ -37,6 +41,9 @@ names tell them from the 2-D kernels).
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from repro_torch.core import bitpack
@@ -44,6 +51,9 @@ from repro_torch.kernels import _cuda
 
 WORD_BITS = bitpack.WORD_BITS
 _PLAIN_CHUNK_WORDS = 8  # bounds the (M, N, chunk) int64 temporaries
+# csrc/xnor_mismatch.cu's plan, as repro_xnor_mismatch_plan reports it
+_PLAN_FIELDS = ("decode", "grid_x", "grid_y", "grid_z", "threads", "smem",
+                "rows", "row_groups", "row_tiles", "splits", "pieces")
 
 
 def mxu_pad_inflation(total_words: int, k_true: int) -> int:
@@ -62,6 +72,25 @@ def _popcount32(x: torch.Tensor) -> torch.Tensor:
     return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
 
 
+def _full_add(x, y, z):
+    """Full adder on 32 bit lanes: ``x + y + z = sum + 2 * carry``."""
+    return x ^ y ^ z, (x & y) | (z & (x ^ y))
+
+
+def popc8(w: torch.Tensor) -> torch.Tensor:
+    """``sum_i popcount(w[..., i])`` over 8 words (int64, low 32 bits) in 4
+    popcounts: a carry-save tree of four full adders reduces 7 words of
+    weight 1 to one word each of weight 1, 2 and 4 (Harley-Seal), as
+    ``popc8`` in csrc/xnor_mismatch.cu folds the XOR words.  The plain
+    versions below count word by word, independent of this fold."""
+    s1, c1 = _full_add(w[..., 0], w[..., 1], w[..., 2])
+    s2, c2 = _full_add(w[..., 3], w[..., 4], w[..., 5])
+    s3, c3 = _full_add(s1, s2, w[..., 6])
+    s4, c4 = _full_add(c1, c2, c3)
+    return (_popcount32(s3) + _popcount32(w[..., 7]) + 2 * _popcount32(s4)
+            + 4 * _popcount32(c4))
+
+
 def xnor_mismatch_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Plain version of the vpu kernel: (M, Kw) x (N, Kw) int32 words ->
     (M, N) int32 ``sum_w popcount(a ^ b)``."""
@@ -73,6 +102,48 @@ def xnor_mismatch_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         x = a64[:, None, sl] ^ b64[None, :, sl]
         acc += _popcount32(x).sum(dim=-1)
     return acc.to(torch.int32)
+
+
+@functools.cache
+def _plan_fn():
+    fn = _cuda.lib().repro_xnor_mismatch_plan
+    fn.argtypes = 4 * [ctypes.c_longlong] + [
+        ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def tile_plan(e: int, m: int, n: int, kw: int, sms: int) -> dict:
+    """The tile csrc/xnor_mismatch.cu launches for an (E,) M x N x Kw call
+    on a card with ``sms`` SMs, read from the C entry point's own plan (it
+    launches nothing; needs the built kernel library): ``tile`` ("decode"
+    or "prefill"), the grid, the threads a block, its dynamic shared memory
+    and, for the decode tile, its row count (``rows``, the block's rows
+    padded up), the row groups, the row tiles and ``splits`` a block, and
+    Kw's 16-word ``pieces``, which the splits share in equal runs."""
+    out = (ctypes.c_longlong * len(_PLAN_FIELDS))()
+    _cuda.check(_plan_fn()(e, m, n, kw, sms, out), "xnor_mismatch_plan")
+    f = dict(zip(_PLAN_FIELDS, out))
+    plan = dict(tile="decode" if f["decode"] else "prefill",
+                grid=(f["grid_x"], f["grid_y"], f["grid_z"]),
+                threads=f["threads"], smem=f["smem"])
+    if f["decode"]:
+        plan.update((k, f[k]) for k in ("rows", "row_groups", "row_tiles",
+                                        "splits", "pieces"))
+    return plan
+
+
+def describe_plan(plan: dict) -> str:
+    """One line for a :func:`tile_plan`."""
+    blocks = plan["grid"][0] * plan["grid"][1] * plan["grid"][2]
+    if plan["tile"] == "prefill":
+        return f"prefill tile, {blocks} blocks of 64 x 64"
+    per = plan["pieces"] / plan["splits"]
+    return (f"decode tile of {plan['rows']} rows, "
+            f"{plan['row_groups']} row group(s), "
+            f"{plan['row_tiles']} row tile(s) x {plan['splits']} split(s) of "
+            f"{per:g} piece(s) a block, {blocks} blocks of "
+            f"{plan['threads'] // 32} warps")
 
 
 def xnor_dot_mxu_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -6,6 +6,8 @@ none).  Run there with:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -121,6 +123,112 @@ def test_batched_gemm_kernels_match_plain(cuda, e, m, n, kw):
     assert torch.equal(got_v, xnor_gemm.xnor_mismatch_batched_plain(a, b))
     assert torch.equal(got_m, xnor_gemm.xnor_dot_mxu_batched_plain(a, b))
     assert torch.equal(got_m, 32 * kw - 2 * got_v)
+
+
+# K2 / K7 tiles (csrc/xnor_mismatch.cu; xnor_gemm.tile_plan reads its plan):
+# M on both sides of the decode tile's 32 rows with small N (row groups of
+# 32 where the prefill grid would fill under half the SMs), N off the 16-row
+# warp tile, ragged Kw (word-by-word copies) against the 16-word piece,
+# granite's q / k / v / o / up / down at the rows that give every split
+# count, and deepseek-moe-16b's expert GEMMs at 24 and 576 bucket rows
+XNOR_EDGES = [(m, n, kw) for m in (31, 32, 33, 64, 65) for n, kw in
+              ((17, 64), (40, 44), (100, 9), (250, 16))]
+XNOR_GRANITE = [(m, n, kw) for m in (1, 4, 8, 32, 96, 256)
+                for n, kw in ((2048, 64), (512, 64), (8192, 64), (2048, 256))]
+XNOR_MOE = [(64, m, n, kw) for m in (24, 576) for n, kw in ((1408, 64),
+                                                            (2048, 44))]
+
+
+@pytest.mark.parametrize("m,n,kw", XNOR_EDGES + XNOR_GRANITE)
+def test_xnor_mismatch_tiles_match_plain(cuda, m, n, kw):
+    a, b = _words((m, kw), m + kw, cuda), _words((n, kw), n + kw, cuda)
+    got = xnor_gemm.xnor_mismatch(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, xnor_gemm.xnor_mismatch_plain(a, b))
+
+
+def test_xnor_mismatch_plans_reach_every_split(cuda):
+    """The granite cases above reach both tiles, row groups and splits of
+    1, 2, 4 and 8 on this card (the plan the C entry point launches, read
+    back by ``tile_plan``), and every decode plan's grid and pieces cover
+    every weight row, activation row and Kw word."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plans = [xnor_gemm.tile_plan(1, m, n, kw, sms)
+             for m, n, kw in XNOR_GRANITE + XNOR_EDGES]
+    decode = [p for p in plans if p["tile"] == "decode"]
+    for p, (m, n, kw) in zip(plans, XNOR_GRANITE + XNOR_EDGES):
+        if p["tile"] == "decode":
+            assert p["grid"][0] * p["row_tiles"] * 16 >= n
+            assert p["grid"][1] * 32 >= m and p["rows"] >= min(m, 32)
+            assert p["pieces"] * 16 >= kw > (p["pieces"] - 1) * 16
+            assert p["splits"] <= p["pieces"]
+            assert p["threads"] == 32 * p["row_tiles"] * p["splits"] <= 256
+        else:
+            assert p["grid"][0] * 64 >= n and p["grid"][1] * 64 >= m
+    assert {p["splits"] for p in decode} == {1, 2, 4, 8}
+    assert any(p["row_groups"] > 1 for p in decode)
+    assert any(p["tile"] == "prefill" for p in plans)
+
+
+@pytest.mark.parametrize("e,m,n,kw", XNOR_MOE + [(3, m, n, kw) for m, n, kw
+                                                  in XNOR_EDGES])
+def test_xnor_mismatch_batched_tiles_match_plain(cuda, e, m, n, kw):
+    a, b = _words((e, m, kw), m + kw, cuda), _words((e, n, kw), n + kw, cuda)
+    got = xnor_gemm.xnor_mismatch_batched(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, xnor_gemm.xnor_mismatch_batched_plain(a, b))
+
+
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("m,n,kw", [(4, 100, 64), (24, 1408, 44),
+                                    (33, 17, 8), (256, 130, 20)])
+def test_xnor_mismatch_unaligned_operands(cuda, batched, m, n, kw):
+    """Operands at a 4-byte but not 16-byte offset (contiguous views one
+    word into a buffer), Kw % 4 == 0: the kernel copies word by word."""
+    lead = (2,) if batched else ()
+    sa, sb = (*lead, m, kw), (*lead, n, kw)
+    a = _words((math.prod(sa) + 1,), 7, cuda)[1:].view(sa)
+    b = _words((math.prod(sb) + 1,), 8, cuda)[1:].view(sb)
+    assert a.data_ptr() % 16 and b.data_ptr() % 16
+    kernel, plain = ((xnor_gemm.xnor_mismatch_batched,
+                      xnor_gemm.xnor_mismatch_batched_plain) if batched else
+                     (xnor_gemm.xnor_mismatch, xnor_gemm.xnor_mismatch_plain))
+    got = kernel(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain(a.clone(), b.clone()))
+
+
+@pytest.mark.parametrize("fill_a,fill_b", [(0, -1), (-1, 0), (-1, -1), (0, 0)])
+@pytest.mark.parametrize("m,n,kw", [(4, 2048, 256), (24, 40, 44),
+                                    (256, 130, 63), (1, 1, 1)])
+def test_xnor_mismatch_constant_words(cuda, fill_a, fill_b, m, n, kw):
+    """All-zero and all-ones words: every bit mismatches where they meet,
+    and every sum is 32 * Kw (or 0), on both tiles, 2-D and batched."""
+    want = 32 * kw if fill_a != fill_b else 0
+    for lead in ((), (3,)):
+        a = torch.full((*lead, m, kw), fill_a, dtype=torch.int32, device=cuda)
+        b = torch.full((*lead, n, kw), fill_b, dtype=torch.int32, device=cuda)
+        got = (xnor_gemm.xnor_mismatch_batched(a, b) if lead
+               else xnor_gemm.xnor_mismatch(a, b))
+        torch.cuda.synchronize()
+        assert torch.equal(got, torch.full_like(got, want))
+
+
+@pytest.mark.parametrize("e,m,n,kw", [(1, 4, 2048, 64), (1, 4, 2048, 256),
+                                      (1, 256, 8192, 64), (64, 24, 1408, 64),
+                                      (64, 576, 2048, 44)])
+def test_xnor_mismatch_repeats_bit_for_bit(cuda, e, m, n, kw):
+    """Two calls on the same inputs give the same bits (integer sums, the
+    split-K partials added in a fixed order)."""
+    a, b = _words((e, m, kw), 11, cuda), _words((e, n, kw), 12, cuda)
+    if e == 1:
+        a, b = a[0], b[0]
+        fn = xnor_gemm.xnor_mismatch
+    else:
+        fn = xnor_gemm.xnor_mismatch_batched
+    first, second = fn(a, b), fn(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def _grouped_operands(dev, t=48, k=300, e=8, n=70, stacks=2):

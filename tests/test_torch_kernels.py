@@ -99,6 +99,69 @@ def test_mxu_plain_is_padded_popcount_identity(m, n, kw):
                        32 * kw - 2 * mism_b)
 
 
+@pytest.mark.parametrize("fill", ["random", "zeros", "ones", "mixed",
+                                  "alternating", "one-bit", "sign-bit"])
+def test_carry_save_folds_match_word_popcounts(fill):
+    """The carry-save fold (``popc8``, the kernels' four-full-adder tree)
+    equals the SWAR popcount summed word by word, on full-range words (bit
+    31 set half the time), all-zero, all-ones, rows that mix the three,
+    alternating bit patterns (every full adder's carry set, then none),
+    one set bit a word at a random place, and the sign bit alone."""
+    rng = np.random.default_rng(len(fill))
+    u, _ = _words(rng, (257, 8))
+    if fill == "zeros":
+        u[:] = 0
+    elif fill == "ones":
+        u[:] = 0xFFFFFFFF
+    elif fill == "mixed":
+        u[::3] = 0
+        u[1::3, ::2] = 0xFFFFFFFF
+    elif fill == "alternating":
+        u[:] = 0x55555555
+        u[::2, 1::2] = 0xAAAAAAAA
+        u[1::2, :4] = 0xAAAAAAAA
+    elif fill == "one-bit":
+        u[:] = np.uint32(1) << rng.integers(0, 32, u.shape).astype(np.uint32)
+    elif fill == "sign-bit":
+        u[:] = 0x80000000
+        u[::2, ::3] = 0
+    w = torch.from_numpy(u.astype(np.int64))
+    want = xnor_gemm._popcount32(w).sum(dim=-1)
+    np.testing.assert_array_equal(
+        want.numpy(), np.unpackbits(u.view(np.uint8), axis=-1).sum(axis=-1))
+    assert torch.equal(xnor_gemm.popc8(w), want)
+    # int32 words as the port holds them (sign-extended into int64)
+    w32 = torch.from_numpy(u.view(np.int32).astype(np.int64))
+    assert torch.equal(xnor_gemm.popc8(w32), want)
+
+
+def _pallas_padded(fn, a, b, **kw):
+    """A Pallas GEMM over zero-padded operands (M to 8, N to 128, Kw to 8
+    words: zero words add no mismatch), cut back to (M, N)."""
+    m, n, kwords = a.shape[-2], b.shape[-2], a.shape[-1]
+    mp, np_, kp = -(-m // 8) * 8, -(-n // 128) * 128, -(-kwords // 8) * 8
+    pad = [(0, 0)] * (a.ndim - 2)
+    ap = np.pad(a, pad + [(0, mp - m), (0, kp - kwords)])
+    bp = np.pad(b, pad + [(0, np_ - n), (0, kp - kwords)])
+    out = fn(jnp.asarray(ap), jnp.asarray(bp), bm=mp, bn=128, bkw=kp,
+             interpret=True, **kw)
+    return np.asarray(out)[..., :m, :n]
+
+
+# K2 / K7 tile switches (csrc/xnor_mismatch.cu): M around the decode tile's
+# 32 rows and its row counts (24 = deepseek-moe-16b's decode buckets), N off
+# the 16-row warp tile and deepseek's 1408, Kw 44 (its down GEMM) and 63
+@pytest.mark.parametrize("m,n,kw", [(m, n, kw) for m in (24, 32, 33, 64)
+                                    for n in (17, 1408) for kw in (44, 63)])
+def test_xnor_mismatch_plain_matches_pallas_at_tile_switches(m, n, kw):
+    rng = np.random.default_rng(m * 1000 + n + kw)
+    au, at = _words(rng, (m, kw))
+    bu, bt = _words(rng, (n, kw))
+    want = _pallas_padded(xnor_mismatch_pallas, au, bu, chunk_words=8)
+    np.testing.assert_array_equal(xnor_gemm.xnor_mismatch_plain(at, bt).numpy(),
+                                  want)
+
+
 EPILOGUES = [dict(), dict(scale=True), dict(xnor_range=True), dict(bias=True),
              dict(scale=True, xnor_range=True, bias=True)]
 

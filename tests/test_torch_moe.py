@@ -214,6 +214,26 @@ def test_batched_plain_kernels_match_jax(e, m, n, kw, k_true):
     assert torch.equal(raw_m - xnor_gemm.mxu_pad_inflation(kw, k_true), exact)
 
 
+# K7's tile switches (csrc/xnor_mismatch.cu): bucket rows around the decode
+# tile's 32 (24 = deepseek-moe-16b's decode buckets), N off the 16-row warp
+# tile and deepseek's 1408, Kw 44 (its down GEMM) and 63; Pallas runs on
+# zero-padded operands (zero words add no mismatch)
+@pytest.mark.parametrize("m,n,kw", [(m, n, kw) for m in (24, 32, 33, 64)
+                                    for n, kw in ((17, 44), (1408, 63))])
+def test_batched_plain_matches_pallas_at_tile_switches(m, n, kw):
+    rng = np.random.default_rng(m * 100 + kw)
+    au, at = _words(rng, (2, m, kw), 32 * kw)
+    bu, bt = _words(rng, (2, n, kw), 32 * kw)
+    mp, np_, kp = -(-m // 8) * 8, -(-n // 128) * 128, -(-kw // 8) * 8
+    ap = np.pad(au, [(0, 0), (0, mp - m), (0, kp - kw)])
+    bp = np.pad(bu, [(0, 0), (0, np_ - n), (0, kp - kw)])
+    want = np.asarray(xnor_mismatch_batched_pallas(
+        jnp.asarray(ap), jnp.asarray(bp), bm=mp, bn=128, bkw=kp,
+        chunk_words=8, interpret=True))[:, :m, :n]
+    np.testing.assert_array_equal(
+        xnor_gemm.xnor_mismatch_batched_plain(at, bt).numpy(), want)
+
+
 GROUPED_CASES = {  # name: (T, K, E, N, group sizes, expert_capacity, stacks)
     "ragged-empty-short": (23, 45, 4, 13, [5, 0, 11, 4], None, 1),
     "tuple": (17, 40, 3, 9, [6, 7, 4], None, 2),
