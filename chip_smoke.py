@@ -18,7 +18,9 @@ Phases (any failure exits non-zero before the result line):
 2. kernel parity against the plain versions: exact int32 at the main
    path's GEMM shapes (decode batch and prefill rows) and ragged ones for
    sign-pack (K1), xnor-popcount (K2), int8-unpack (K3), quantize-plane-pack
-   (K4) with rounding ties and range edges, plane AND-popcount (K5) and
+   (K4) with rounding ties and range edges (and at the MoE prologue's 24 /
+   576 rows, K 10944, its chunk edges and whole rows of code ties, each
+   called twice, bit for bit), plane AND-popcount (K5) and
    code-lane ``mma`` (K6), and K5 == K6 at plane counts (2,2), (4,4), (8,8)
    and (8,4); flash-decode (K11) within 2e-5 on rows that see a key, over
    fp32 / bf16 / int8 / 1-bit pools, paged and contiguous, C 1/4/256, G 1/4,
@@ -51,7 +53,11 @@ Phases (any failure exits non-zero before the result line):
    for a GEMM, that of its function, the integer dot of the codes, on the
    int8 tensor cores, whichever kernel computes it; K2/K5's popcount
    ceiling is printed beside it, and K2/K7's carry-save ceiling and tile
-   plan; K2 summed per granite layer at decode and at prefill; for K11 the
+   plan; K2, K1 and K4 summed per granite layer at decode and at prefill;
+   beside K1 and K4 the graph-node floor, the time of a one-element
+   ``zero_`` in the same CUDA-graph harness, and both once more at the MoE
+   cell's prologue shapes (24 / 576 rows at K 2048 / 1408, 4 rows at
+   K 10944); for K11 the
    admitted rows' bytes or its
    fp32 operations); K7 / K8 (1 bit) and K9 / K10 (w4a4) at
    deepseek-moe-16b's expert GEMMs (64 experts; 24 bucket rows at decode,
@@ -209,6 +215,19 @@ ZERO_ROWS = ("front", "planes", "slice", "all")
 ZERO_SHAPES = ((4, 2048, 64), (24, 1408, 63), (32, 512, 257), (33, 65, 9),
                (256, 1408, 65), (576, 17, 5))
 EDGE_PLANE_PAIRS = PLANE_PAIRS + ((3, 5),)  # (ka, kb) cycled over TILE_CASES
+# the activation prologues (K1, K4) at the MoE cell's shapes: the 24 / 576
+# expert-sorted rows at K 2048 (up / gate) and 1408 (down), and
+# deepseek-moe-16b's dense layer-0 `down` input (d_ff 10944) at decode
+PROLOGUE_SHAPES = ((MOE_DECODE_EC, 2048), (MOE_DECODE_EC, 1408),
+                   (MOE_PREFILL_EC, 2048), (MOE_PREFILL_EC, 1408),
+                   (DECODE_M, 10944))
+# K4 parity beyond granite's shapes (as tests/test_torch_gpu.py): the
+# prologue shapes above, one row, Kw 37 (a row over 5 warps of 8 words),
+# Kw 529 (two chunks of 32 warps of 16 words) and 576 rows at K 10944
+K4_CASES = PROLOGUE_SHAPES + ((1, 10944), (DECODE_M, 37 * 32 - 5),
+                              (2, 529 * 32 - 7), (MOE_PREFILL_EC, 10944))
+K4_TIE_SHAPES = ((DECODE_M, 2048), (MOE_DECODE_EC, 1408),
+                 (MOE_PREFILL_EC, 2048), (DECODE_M, 10944))
 
 
 def nvidia_smi(query: str) -> str:
@@ -294,6 +313,18 @@ def dorefa_acts(shape, gen, dev, a_bits: int):
     return x
 
 
+def tie_rows(m: int, k: int, a_bits: int, dev) -> torch.Tensor:
+    """Rows whose values sit on the code ties (j + 0.5)/Na and one float
+    either side of them, cycling over j: round-half-to-even decides every
+    code of the ties."""
+    na = (1 << a_bits) - 1
+    ties = torch.tensor([(j + 0.5) / na for j in range(na)], device=dev)
+    vals = torch.stack([ties, torch.nextafter(ties, torch.full_like(ties, 2)),
+                        torch.nextafter(ties, torch.full_like(ties, -1))])
+    reps = -(-m * k // vals.numel())
+    return vals.reshape(-1).repeat(reps)[: m * k].reshape(m, k)
+
+
 def weight_planes(n: int, k: int, w_bits: int, gen, dev) -> torch.Tensor:
     """A (w_bits, N, Kw) plane stack of DoReFa codes of normal weights, as
     the converter packs them."""
@@ -344,6 +375,23 @@ def parity_kbit(dev) -> dict[str, float]:
                 check_exact({"quant_pack_planes": list(zip(got, want))}, err,
                             f"M={m} K={k} a_bits={a_bits}")
                 n_k4 += 1
+    # the MoE prologue's rows, long rows, chunk edges, rows of code ties, and
+    # a second call that must repeat the first bit for bit
+    k4_new = [(m, k, a_bits, "acts") for m, k in K4_CASES
+              for a_bits in (2, 3, 4, 8)]
+    k4_new += [(m, k, a_bits, "ties") for m, k in K4_TIE_SHAPES
+               for a_bits in (2, 3, 4, 8)]
+    for m, k, a_bits, kind in k4_new:
+        x = (dorefa_acts((m, k), gen, dev, a_bits) if kind == "acts"
+             else tie_rows(m, k, a_bits, dev))
+        got = pack_bits.quant_pack_planes(x, a_bits)
+        again = pack_bits.quant_pack_planes(x, a_bits)
+        want = pack_bits.quant_pack_planes_plain(x, a_bits)
+        torch.cuda.synchronize()
+        check_exact({"quant_pack_planes": list(zip(got, want))
+                     + list(zip(again, got))}, err,
+                    f"M={m} K={k} a_bits={a_bits} {kind}")
+        n_k4 += 1
     # granite's GEMMs at the decode batch and the prefill rows (the decode
     # tiles' split-K runs and row groups) at every plane pair
     cases = [(m, n, k, EDGE_PLANE_PAIRS if m > 1 else PLANE_PAIRS)
@@ -384,7 +432,9 @@ def parity_kbit(dev) -> dict[str, float]:
                          ap, wp)), (s6, s5)]}, err, where)
         check_zero_rows("kbit_plane_gemm", s5, zero, where)
         check_zero_rows("kbit_mxu_gemm", s6, zero, where)
-    print(f"parity: K4 at {n_k4} (M, K, a_bits) cases, K5/K6 at "
+    print(f"parity: K4 at {n_k4} (M, K, a_bits) cases ({len(k4_new)} of "
+          f"them the MoE prologue's rows, K 10944, chunk edges and rows of "
+          f"code ties, each called twice, bit for bit), K5/K6 at "
           f"{n_gemm} (shape, plane pair) cases ({len(cases)} shapes, "
           f"granite's at M {DECODE_M} and {PREFILL_M} over "
           f"{EDGE_PLANE_PAIRS}), "
@@ -934,6 +984,15 @@ def graph_ms(fn, arg_sets, iters: int, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def graph_node_floor_ms(dev) -> float:
+    """The least time one kernel node takes in :func:`graph_ms`: a
+    one-element ``zero_`` (one fill kernel), 200 calls in one graph.  A
+    kernel whose work is a few KB cannot take less; the prologues (K1, K4)
+    print it beside their bound."""
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    return graph_ms(torch.Tensor.zero_, [(one,)], 200)
+
+
 def copies_for(nbytes: int, cap: int) -> int:
     """Distinct weight copies to cycle through so that they overflow the
     50 MB L2 cache: the serving path reads every layer's weights cold."""
@@ -973,16 +1032,17 @@ def operands(bits: int, m: int, n: int, k: int, copies: int, gen, dev):
 FAMILIES = {1: ONE_BIT, 4: K_BIT, 8: K_BIT}
 
 
-def timing(dev, popc_per_s: float) -> tuple[dict, list]:
+def timing(dev, popc_per_s: float, floor_ms: float) -> tuple[dict, list]:
     """Every kernel at the decode and prefill rows of each layer GEMM, 1-bit
     (K1-K3), w4a4 and w8a8 (K4-K6): kernel, plain version, the bf16
-    yardstick and the bound.  A GEMM's function is the integer dot of the
-    codes, so its bound is the larger of its bytes at the HBM rate and
-    ``2*M*N*K`` int8 operations at the tensor cores' peak, whichever kernel
-    computes it; the popcount kernels (K2, K5) also get the ceiling of their
-    own algorithm at the popc rate (``popc_bound_ms``), and K2 its
-    carry-save ceiling (``csa_bound_ms``, 4 popcounts per 8 word pairs)
-    and its tile plan (``plan``).  K3 and K6 are
+    yardstick and the bound; the prologues (K1, K4) also get the graph-node
+    floor (``floor_ms``, :func:`graph_node_floor_ms`).  A GEMM's function is
+    the integer dot of the codes, so its bound is the larger of its bytes
+    at the HBM rate and ``2*M*N*K`` int8 operations at the tensor cores'
+    peak, whichever kernel computes it; the popcount kernels (K2, K5) also
+    get the ceiling of their own algorithm at the popc rate
+    (``popc_bound_ms``), and K2 its carry-save ceiling (``csa_bound_ms``, 4
+    popcounts per 8 word pairs) and its tile plan (``plan``).  K3 and K6 are
     timed again on one weight copy that stays in the L2 cache
     (``warm_ms``): a time that does not drop says device-memory bytes do
     not bound them.  The plain K5 runs ka*kb int64 popcount passes (about a
@@ -1025,7 +1085,7 @@ def timing(dev, popc_per_s: float) -> tuple[dict, list]:
                     plain_ms=graph_ms(fns[pro][1], [args], 5),
                     library_ms=None,
                     bytes=(m * k + bits * m * kw + (m if bits > 1 else 0)) * 4,
-                    ops_s=0.0)
+                    ops_s=0.0, floor_ms=floor_ms)
                 lib_ms = graph_ms(torch.matmul, [(xb, w) for w in wbs], nl)
                 for kname in (popc_gemm, mma_gemm):
                     kernel, plain = fns[kname]
@@ -1067,6 +1127,8 @@ def finish_row(row: dict, names, label: str) -> None:
         + ("-" if row[kn]["library_ms"] is None
            else f"{row[kn]['library_ms'] * 1e3:.3f}")
         + f" bound {row[kn]['bound_ms'] * 1e3:.3f}"
+        + ("" if "floor_ms" not in row[kn]
+           else f" floor {row[kn]['floor_ms'] * 1e3:.3f}")
         + ("" if "popc_bound_ms" not in row[kn]
            else f" popc ceiling {row[kn]['popc_bound_ms'] * 1e3:.3f}")
         + ("" if "csa_bound_ms" not in row[kn]
@@ -1082,7 +1144,8 @@ def finish_row(row: dict, names, label: str) -> None:
 def layer_total(rows: list, kname: str, m: int) -> dict:
     """One layer's 7 GEMM calls at ``m`` rows, summed for one kernel (K4-K6
     at w4a4): times, the bound of the summed bytes and operations, and the
-    popcount / carry-save ceilings where the rows have them."""
+    popcount / carry-save ceilings and the graph-node floor where the rows
+    have them."""
     rs = [r[kname] for r in rows
           if r["m"] == m and r["bits"] in (1, 4) and kname in r]
     t_bytes = sum(r["bytes"] for r in rs) / HBM_BYTES_PER_S
@@ -1093,7 +1156,7 @@ def layer_total(rows: list, kname: str, m: int) -> dict:
                  bound_ms=max(t_bytes, t_ops) * 1e3,
                  bound_by="bytes" if t_bytes >= t_ops else "operations",
                  library_ms=None if None in lib else sum(lib))
-    for key in ("popc_bound_ms", "csa_bound_ms"):
+    for key in ("popc_bound_ms", "csa_bound_ms", "floor_ms"):
         if all(key in r for r in rs):
             total[key] = sum(r[key] for r in rs)
     return total
@@ -1111,10 +1174,40 @@ def print_layer_total(label: str, t: dict) -> None:
           f"{t['plain_ms'] * 1e3:.3f} library "
           + ("-" if t["library_ms"] is None else f"{t['library_ms'] * 1e3:.3f}")
           + f" bound {t['bound_ms'] * 1e3:.3f} ({t['bound_by']})"
+          + ("" if "floor_ms" not in t
+             else f" graph-node floor {t['floor_ms'] * 1e3:.3f}")
           + ("" if "popc_bound_ms" not in t
              else f" popc ceiling {t['popc_bound_ms'] * 1e3:.3f}")
           + ("" if "csa_bound_ms" not in t
              else f" carry-save ceiling {t['csa_bound_ms'] * 1e3:.3f}"))
+
+
+def timing_prologues(dev, floor_ms: float) -> list:
+    """K1 and K4 (w4a4) at the MoE cell's prologue shapes
+    (``PROLOGUE_SHAPES``): kernel, plain version, bound (bytes) and the
+    graph-node floor."""
+    from repro_torch.kernels import pack_bits
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    rows = []
+    for m, k in PROLOGUE_SHAPES:
+        kw = (k + 31) // 32
+        row = {"m": m, "k": k}
+        x = torch.randn((m, k), generator=gen, device=dev)
+        xq = dorefa_acts((m, k), gen, dev, 4)
+        for name, fn, plain, args, out_words in (
+                ("pack_sign", pack_bits.pack_sign, pack_bits.pack_sign_plain,
+                 (x,), m * kw),
+                ("quant_pack_planes", pack_bits.quant_pack_planes,
+                 pack_bits.quant_pack_planes_plain, (xq, 4), 4 * m * kw + m)):
+            row[name] = dict(ms=graph_ms(fn, [args], 200),
+                             plain_ms=graph_ms(plain, [args], 5),
+                             library_ms=None, bytes=(m * k + out_words) * 4,
+                             ops_s=0.0, floor_ms=floor_ms)
+        finish_row(row, ("pack_sign", "quant_pack_planes"),
+                   f"timing prologues M={m} K={k} (K4 w4a4)")
+        rows.append(row)
+    return rows
 
 
 def event_ms(fn, args: dict, reps: int = 3) -> float:
@@ -2384,13 +2477,17 @@ def profile_decode(eng, label: str, steps: int = 3) -> dict:
             by_name[evt.key] = by_name.get(evt.key, 0.0) + us / steps
     device_ms = sum(by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    # K11: every kernel of csrc/flash_decode.cu (decode tile, split
-    # combine, window tile) carries "flash_decode" in its name
-    k11_us = sum(v for k, v in by_name.items() if "flash_decode" in k)
+    # every kernel of csrc/flash_decode.cu (K11: decode tile, split
+    # combine, window tile) carries "flash_decode" in its name, and the
+    # prologues' kernels (K1, K4) their sources' names
+    us = {tag: sum(v for k, v in by_name.items() if sub in k)
+          for tag, sub in (("k11", "flash_decode"), ("k1", "pack_sign"),
+                           ("k4", "quant_pack_planes"))}
     out = {"wall_ms_per_step": wall_ms,
            "device_ms_per_step": device_ms if by_name else None,
            "device_busy_share": device_ms / wall_ms if by_name else None,
-           "k11_us_per_step": k11_us if by_name else None,
+           **{f"{tag}_us_per_step": v if by_name else None
+              for tag, v in us.items()},
            "top_kernels_us_per_step": [[k[:90], v] for k, v in top]}
     if not by_name:
         print(f"profile {label}: wall {wall_ms:.4f} ms/step; device time "
@@ -2398,7 +2495,8 @@ def profile_decode(eng, label: str, steps: int = 3) -> dict:
     else:
         print(f"profile {label}: wall {wall_ms:.4f} ms/step, device "
               f"{device_ms:.4f} ms/step, busy share {device_ms / wall_ms:.4f}, "
-              f"K11 {k11_us:.1f}us; top: "
+              f"K11 {us['k11']:.1f}us, K1 {us['k1']:.1f}us, K4 "
+              f"{us['k4']:.1f}us; top: "
               + "; ".join(f"{k[:60]} {v:.1f}us" for k, v in top))
     return out
 
@@ -2441,13 +2539,24 @@ def main() -> int:
     err.update(parity_moe_kbit(dev))
     print(f"parity phase {time.perf_counter() - t0:.3f}s")
     t0 = time.perf_counter()
-    totals, rows = timing(dev, popc_per_s)
+    floor_ms = graph_node_floor_ms(dev)
+    print(f"timing graph-node floor (a one-element zero_, 200 calls in one "
+          f"CUDA graph): {floor_ms * 1e3:.3f} us")
+    totals, rows = timing(dev, popc_per_s, floor_ms)
     k2_prefill = layer_total(rows, "xnor_mismatch", PREFILL_M)
     print_layer_total(f"timing K2 per granite decode layer (7 GEMMs, "
                       f"M={DECODE_M})", totals["xnor_mismatch"])
     print_layer_total(f"timing K2 per granite prefill layer (7 GEMMs, "
                       f"M={PREFILL_M}; library = bf16 torch.matmul)",
                       k2_prefill)
+    prologue_layers = {}
+    for kname, tag in (("pack_sign", "K1"), ("quant_pack_planes", "K4 w4a4")):
+        for m in (DECODE_M, PREFILL_M):
+            t = layer_total(rows, kname, m)
+            prologue_layers[f"{kname} M={m}"] = t
+            print_layer_total(f"timing {tag} per granite layer (7 calls, "
+                              f"M={m})", t)
+    prologue_rows = timing_prologues(dev, floor_ms)
     moe_totals, moe_rows = timing_moe(dev, popc_per_s)
     totals.update(moe_totals)
     attn_rows = timing_attn(dev)
@@ -2489,6 +2598,9 @@ def main() -> int:
         "kernel_totals_decode_layer (K4-K6 at w4a4, K11 fp32 pool, K7/K8 "
         "and K9/K10 (w4a4) one MoE layer)": totals,
         "xnor_mismatch_prefill_layer": k2_prefill,
+        "graph_node_floor_ms": floor_ms,
+        "prologue_layers (K1, K4 w4a4)": prologue_layers,
+        "prologue_timing_rows": prologue_rows,
         "serving": serve_summary,
         "launches": launches}, indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -8,8 +8,8 @@ of ``repro.kernels.pack_bits``:
 ``quant_pack_planes`` (k bits, port of ``quant_pack_planes_pallas``)
     (M, K) float32 -> DoReFa codes ``round(clip(x, 0, 1) * (2^a_bits - 1))``
     packed as an (a_bits, M, Kw) int32 plane stack, plus the (M, 1) int32
-    code row-sums T, in one pass.  CUDA: ``csrc/quant_pack_planes.cu`` (one
-    warp ballot per plane word, integer row-sum in the same block).
+    code row-sums T, in one pass.  CUDA: ``csrc/quant_pack_planes.cu`` (a
+    bit transpose across each warp, integer row-sum in the same block).
 
 On a CUDA tensor each wrapper launches its hand-written Hopper kernel (or
 raises), and the kernel masks the ragged K edge itself; on a CPU tensor it

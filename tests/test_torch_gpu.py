@@ -291,11 +291,47 @@ def _acts(shape, seed, dev, a_bits):
     return x
 
 
+# K4's plan (csrc/quant_pack_planes.cu) splits a row over 1-32 warps of 8
+# or 16 words and loops over chunks of 32 x 16 words: the MoE prologue's
+# 24 / 576 expert-sorted rows at K 2048 / 1408, deepseek-moe-16b's dense
+# `down` at K 10944 (22 warps of 16, the last one short), Kw 37 (5 warps of
+# 8, the last one short), one row, Kw 529 (two chunks) and M 576 at
+# K 10944.
 @pytest.mark.parametrize("a_bits", [2, 3, 4, 8])
 @pytest.mark.parametrize("m,k", [(1, 1), (3, 33), (4, 2048), (128, 8192),
-                                 (5, 2049), (256, 8191)])
+                                 (5, 2049), (256, 8191), (24, 2048),
+                                 (24, 1408), (576, 2048), (576, 1408),
+                                 (4, 10944), (4, 37 * 32 - 5), (1, 2048),
+                                 (2, 529 * 32 - 7), (576, 10944)])
 def test_quant_pack_planes_kernel_matches_plain(cuda, a_bits, m, k):
     x = _acts((m, k), m + k, cuda, a_bits)
+    got_p, got_t = pack_bits.quant_pack_planes(x, a_bits)
+    again_p, again_t = pack_bits.quant_pack_planes(x, a_bits)
+    torch.cuda.synchronize()
+    want_p, want_t = pack_bits.quant_pack_planes_plain(x, a_bits)
+    assert torch.equal(got_p, want_p) and torch.equal(got_t, want_t)
+    # a second call repeats the first bit for bit
+    assert torch.equal(again_p, got_p) and torch.equal(again_t, got_t)
+
+
+def _tie_rows(m, k, a_bits, dev):
+    """Rows whose values sit on the code ties (j + 0.5)/Na and one float
+    either side of them, cycling over j: round-half-to-even decides every
+    code of the ties."""
+    na = (1 << a_bits) - 1
+    ties = torch.tensor([(j + 0.5) / na for j in range(na)],
+                        dtype=torch.float32)
+    vals = torch.stack([ties, torch.nextafter(ties, torch.tensor(2.0)),
+                        torch.nextafter(ties, torch.tensor(-1.0))])
+    reps = -(-m * k // vals.numel())
+    return vals.reshape(-1).repeat(reps)[: m * k].reshape(m, k).to(dev)
+
+
+@pytest.mark.parametrize("a_bits", [2, 3, 4, 8])
+@pytest.mark.parametrize("m,k", [(4, 2048), (24, 1408), (576, 2048),
+                                 (4, 10944)])
+def test_quant_pack_planes_kernel_on_code_ties(cuda, a_bits, m, k):
+    x = _tie_rows(m, k, a_bits, cuda)
     got_p, got_t = pack_bits.quant_pack_planes(x, a_bits)
     torch.cuda.synchronize()
     want_p, want_t = pack_bits.quant_pack_planes_plain(x, a_bits)

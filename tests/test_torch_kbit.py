@@ -73,11 +73,13 @@ def _planes(rng, bits, rows, kw):
 
 
 @pytest.mark.parametrize("a_bits", [2, 3, 4, 8])
-@pytest.mark.parametrize("k", [33, 64, 100])
+@pytest.mark.parametrize("k", [33, 64, 100, 1408, 10944])
 def test_quant_pack_planes_plain_matches_pallas_kernel(a_bits, k):
     """The prologue's plain version vs the TPU kernel (interpret mode).  The
     Pallas kernel takes floats pre-padded with -1.0 (code 0) to its blocks;
-    the port's kernel masks the ragged edge itself."""
+    the port's kernel masks the ragged edge itself.  K 1408 and 10944 are
+    deepseek-moe-16b's expert ``down`` and dense ``down`` inputs, the widths
+    over which the CUDA kernel's warps split a row (Kw 44 and 342)."""
     m = 5
     x = _edge_acts(np.random.default_rng(a_bits * 100 + k), (m, k), a_bits)
     kw = bitpack.packed_width(k)
