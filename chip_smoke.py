@@ -228,6 +228,18 @@ K4_CASES = PROLOGUE_SHAPES + ((1, 10944), (DECODE_M, 37 * 32 - 5),
                               (2, 529 * 32 - 7), (MOE_PREFILL_EC, 10944))
 K4_TIE_SHAPES = ((DECODE_M, 2048), (MOE_DECODE_EC, 1408),
                  (MOE_PREFILL_EC, 2048), (DECODE_M, 10944))
+# K1 parity beyond granite's shapes (as tests/test_torch_gpu.py): the
+# prologue shapes, the dense `down` input at one and 576 rows, many rows of
+# one word, and K one float and one word either side of each edge of the
+# plan (a warp's 256 floats at decode and 512 at prefill, 4 warps a block)
+# and its multiples, at decode, just past it and at prefill rows; K % 4 != 0
+# is read by 4-byte loads
+K1_EDGE_K = tuple(e + d for e in (256, 512, 1024, 2048, 4096, 8192, 16384)
+                  for d in (-32, -1, 1, 32))
+K1_CASES = (PROLOGUE_SHAPES
+            + ((1, 10944), (MOE_PREFILL_EC, 10944), (4096, 33))
+            + tuple((m, k) for m in (DECODE_M, 33, PREFILL_M)
+                    for k in K1_EDGE_K))
 
 
 def nvidia_smi(query: str) -> str:
@@ -245,6 +257,30 @@ def edge_floats(shape, gen, dev):
     idx = torch.randint(0, flat.numel(), (5,), generator=gen, device=dev)
     flat[idx] = edge
     return x
+
+
+def sign_edge_rows(m: int, k: int, dev) -> torch.Tensor:
+    """Rows cycling through the sign's edge values (±0, NaN of either sign,
+    ±inf, ±denormals, ±1) with a period of 13, odd to every lane's stride,
+    so every lane and every bit of a word meets each of them."""
+    edge = torch.tensor([0.0, -0.0, float("nan"), float("inf"),
+                         -float("inf"), 1e-45, -1e-45, 1e-39, -1e-39, 1.0,
+                         -1.0, 3.0], device=dev)
+    neg_nan = torch.tensor([-(1 << 22)], dtype=torch.int32,
+                           device=dev).view(torch.float32)  # 0xffc00000
+    edge = torch.cat([edge, neg_nan])
+    idx = (torch.arange(m * k, device=dev).reshape(m, k)
+           + 5 * torch.arange(m, device=dev).reshape(m, 1)) % edge.numel()
+    return edge[idx]
+
+
+def misaligned(x: torch.Tensor) -> torch.Tensor:
+    """A copy of ``x`` one float into its storage: contiguous, not 16-byte
+    aligned."""
+    buf = torch.empty(x.numel() + 1, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
 
 
 # --------------------------------------------------------------------------
@@ -278,8 +314,27 @@ def parity(dev) -> dict[str, float]:
         }
         torch.cuda.synchronize()
         check_exact(pairs, err, f"M={m} N={n} K={k}")
+    # K1 at its plan's edges: random floats with the edge values mixed in,
+    # rows of edge values in every lane, and the first of them one float into
+    # its storage (4-byte loads); each called twice, bit for bit
+    n_k1 = 0
+    for m, k in K1_CASES:
+        x = edge_floats((m, k), gen, dev)
+        for kind, xs in (("floats", x), ("edge rows", sign_edge_rows(m, k, dev)),
+                         ("misaligned", misaligned(x))):
+            got = pack_bits.pack_sign(xs)
+            again = pack_bits.pack_sign(xs)
+            torch.cuda.synchronize()
+            check_exact({"pack_sign": [(got, pack_bits.pack_sign_plain(xs)),
+                                       (again, got)]}, err,
+                        f"M={m} K={k} {kind}")
+            n_k1 += 1
     print(f"parity: {len(cases)} shapes, K1-K3 equal their plain versions "
-          f"exactly (int32), and K3 == 32*Kw - 2*K2")
+          f"exactly (int32), and K3 == 32*Kw - 2*K2; K1 also at {n_k1} "
+          f"cases ({len(K1_CASES)} shapes: the MoE prologue's, K 10944, "
+          f"4096 rows of one word and K either side of the plan's chunk "
+          f"edges; floats, rows of edge values in every lane and a "
+          f"misaligned view), each called twice, bit for bit")
     return err
 
 

@@ -3,7 +3,9 @@ of ``repro.kernels.pack_bits``:
 
 ``pack_sign`` (1 bit, port of ``pack_sign_pallas``)
     (M, K) float32 -> (M, Kw) int32 words, ``x >= 0`` -> bit 1, LSB first.
-    CUDA: ``csrc/pack_sign.cu`` (one warp ballot per word).
+    CUDA: ``csrc/pack_sign.cu`` (a warp's 16-byte loads all issued before
+    the pack, four ballots per 128 floats interleaved into their four words,
+    one coalesced store; the plan from M and Kw).
 
 ``quant_pack_planes`` (k bits, port of ``quant_pack_planes_pallas``)
     (M, K) float32 -> DoReFa codes ``round(clip(x, 0, 1) * (2^a_bits - 1))``
@@ -23,8 +25,8 @@ import torch
 from repro_torch.core import bitpack, quant
 from repro_torch.kernels import _cuda
 
-# The plain version is the bitpack reference itself: the kernel's ballot
-# word is exactly ``pack_bits(x >= 0)`` with 0 tail bits.
+# The plain version is the bitpack reference itself: the kernel's words are
+# exactly ``pack_bits(x >= 0)`` with 0 tail bits.
 pack_sign_plain = bitpack.pack_sign
 
 

@@ -75,11 +75,14 @@ def test_packed_width_and_nbytes_match_jax():
                 == jbitpack.packed_nbytes((3, 4, k)))
 
 
-@pytest.mark.parametrize("k", K_SWEEP)
+@pytest.mark.parametrize("k", K_SWEEP + (1408, 10944, 8191))
 def test_pack_sign_plain_matches_pallas_kernel(k):
     """The sign-pack kernel's plain version vs the TPU kernel (interpret
     mode).  The Pallas kernel takes floats pre-padded with -1.0 to its
-    blocks; the port's kernel masks the ragged edge itself."""
+    blocks; the port's kernel masks the ragged edge itself.  K 1408 and
+    10944 are deepseek-moe-16b's expert ``down`` and dense ``down`` inputs
+    (Kw 44 and 342: a multiple of neither a warp's 8 nor its 16 words), and 8191 a
+    K % 4 != 0, which the CUDA kernel reads by 4-byte loads."""
     m = 5
     x = _floats(np.random.default_rng(200 + k), (m, k))
     kw = bitpack.packed_width(k)

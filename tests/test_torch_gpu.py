@@ -49,13 +49,81 @@ def _words(shape, seed, dev):
                          dtype=torch.int64).to(torch.int32)
 
 
-@pytest.mark.parametrize("m,k", [(1, 1), (3, 33), (4, 2048), (128, 8192),
-                                 (5, 2049), (257, 100)])
+# K1's plan (csrc/pack_sign.cu) gives a warp 8 words (256 floats) at
+# decode and 16 (512) at prefill, and a block 4 warps (1,024 or 2,048
+# floats): K one float and one word either side of each such edge and its
+# multiples, at decode (M 4), just past it (M 33) and at prefill (M 256);
+# K % 4 != 0 reads by 4-byte loads.  Then the MoE prologue's 24 / 576
+# expert-sorted rows at K 2048 / 1408, deepseek-moe-16b's dense `down`
+# input (K 10944, Kw 342) at one, four and 576 rows, and many rows of one
+# word.
+K1_EDGE_K = [e + d for e in (256, 512, 1024, 2048, 4096, 8192, 16384)
+             for d in (-32, -1, 1, 32)]
+K1_CASES = ([(1, 1), (3, 33), (4, 2048), (128, 8192), (5, 2049), (257, 100)]
+            + [(m, k) for m in (4, 33, 256) for k in K1_EDGE_K]
+            + [(24, 2048), (24, 1408), (576, 2048), (576, 1408), (4, 10944),
+               (1, 10944), (576, 10944), (4096, 33)])
+
+
+@pytest.mark.parametrize("m,k", K1_CASES)
 def test_pack_sign_kernel_matches_plain(cuda, m, k):
     x = _floats((m, k), m + k, cuda)
     got = pack_bits.pack_sign(x)
+    again = pack_bits.pack_sign(x)
+    # the same values one float into their storage: contiguous, not 16-byte
+    # aligned, so read by 4-byte loads
+    buf = torch.empty(m * k + 1, device=cuda)
+    view = buf[1:].view(m, k)
+    view.copy_(x)
+    shifted = pack_bits.pack_sign(view)
+    torch.cuda.synchronize()
+    want = pack_bits.pack_sign_plain(x)
+    assert torch.equal(got, want)
+    # a second call repeats the first bit for bit
+    assert torch.equal(again, got)
+    assert torch.equal(shifted, want)
+
+
+def _edge_rows(m, k, dev):
+    """Rows cycling through the sign's edge values -- ±0, ±NaN, ±inf,
+    ±denormals (the smallest and 1e-39), ±1 and 3 -- with a period
+    of 13, odd to every lane's stride, so every lane and every bit position
+    of a word meets each of them."""
+    edge = torch.tensor([0.0, -0.0, float("nan"), float("inf"),
+                         -float("inf"), 1e-45, -1e-45, 1e-39, -1e-39, 1.0,
+                         -1.0, 3.0], dtype=torch.float32)
+    # and a NaN with its sign bit set (0xffc00000)
+    neg_nan = torch.tensor([-(1 << 22)], dtype=torch.int32).view(torch.float32)
+    edge = torch.cat([edge, neg_nan])
+    idx = (torch.arange(m * k).reshape(m, k)
+           + 5 * torch.arange(m).reshape(m, 1)) % edge.numel()
+    return edge[idx].to(dev)
+
+
+@pytest.mark.parametrize("m,k", [(4, 2048), (24, 1408), (256, 8192),
+                                 (576, 2048), (4, 10944), (7, 1023)])
+def test_pack_sign_kernel_on_edge_values(cuda, m, k):
+    x = _edge_rows(m, k, cuda)
+    assert (torch.isnan(x) & (x.view(torch.int32) < 0)).any()
+    got = pack_bits.pack_sign(x)
     torch.cuda.synchronize()
     assert torch.equal(got, pack_bits.pack_sign_plain(x))
+
+
+@pytest.mark.parametrize("m,k", [(4, 2048), (256, 8192), (4096, 33),
+                                 (0, 2048), (4, 0), (0, 0)])
+def test_pack_sign_launches_once_per_call(cuda, m, k):
+    """One counted launch per call; no rows or K = 0 launch nothing and
+    give an empty (M, Kw) result."""
+    x = torch.randn((m, k), device=cuda)
+    _cuda.reset_launches()
+    got = pack_bits.pack_sign(x)
+    pack_bits.pack_sign(x)
+    torch.cuda.synchronize()
+    assert got.shape == (m, bitpack.packed_width(k))
+    want = 0 if got.numel() == 0 else 2
+    assert _cuda.LAUNCHES["pack_sign"] == want
+    assert sum(_cuda.LAUNCHES.values()) == want
 
 
 # K3 / K8 tile boundaries: M on both sides of the decode tile's 32 rows
