@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port (``src/repro_torch``) on one NVIDIA
 GPU: builds the hand-written Hopper kernels from the sources in this
-checkout, holds each against its plain PyTorch version, times them, and
-serves granite-3-2b at full width through the continuous-batching
+checkout, holds each against its plain PyTorch version, times them, trains
+full-width granite-3-2b for a few steps and serves the trained model packed,
+and serves granite-3-2b at full width through the continuous-batching
 scheduler on those kernels: packed 1-bit and packed DoReFa w4a4 on the
 contiguous cache, and packed 1-bit on the paged cache with chunked prefill,
 shared prefixes and the flash-decode kernel at every KV tier; then serves
@@ -65,7 +66,26 @@ Phases (any failure exits non-zero before the result line):
    their bound and (K7, K9) their popcount ceiling, and K9 / K10 once more
    at decode on the buckets of a seeded top-6 routing of 4 tokens (the
    experts touched and their planes' bytes printed beside it);
-4. serving: granite-3-2b at full width (d_model 2048, 32/8 heads, d_ff 8192,
+4. training: one step of granite-3-2b smoke (binary, fp32, remat) on the
+   card and on the CPU from the same numpy init and batch, whose loss, grad
+   norm, moments and new params must agree (``TRAIN_TOL``); then
+   granite-3-2b at full width, all 40 layers, params from a seeded
+   ``torch.Generator``: one step under ``QuantPolicy.binary()`` reported
+   (without alpha the gradient overflows fp32 at this depth), then
+   ``TRAIN_STEPS`` AdamW steps (lr 5e-3, warmup 2) of 16 x 256 synthetic
+   tokens under ``QuantPolicy.binary(scale=True)`` (XNOR-Net alpha), fp32
+   master and compute, every block rematerialised, each step's loss, grad
+   norm, bit-flip rate and time printed, then the median step time after
+   the first (the last step runs under ``torch.profiler`` and is left out
+   of it), tokens/s, the peak memory and the profiled step's device time by
+   kernel; every loss must be finite, step 1
+   must flip signs and the master must change.  The moments are freed, the
+   trained master converted, and the granite mix below served packed
+   ``vpu`` (K1 + K2), packed ``mxu`` (K1 + K3) and fake-quant, whose greedy
+   streams must be identical (§2.2.2 on a trained model) with K1, K2 and K3
+   launched; the ``export_packed`` file, loaded by ``load_packed``, must
+   serve the same ``vpu`` streams;
+5. serving: granite-3-2b at full width (d_model 2048, 32/8 heads, d_ff 8192,
    vocab 49155 padded to 49408), all 40 layers, params from a seeded
    ``torch.Generator`` on the card, each run with its kernel counts set to
    0 just before it and read just after:
@@ -109,7 +129,7 @@ Phases (any failure exits non-zero before the result line):
      K9 / K10 must launch 3 x MoE layers x (decode steps + prefills) times
      on the ``vpu`` / ``mxu`` runs and never elsewhere, K4 on every packed
      run;
-5. the ``kernels`` JSON line, then the result line.
+6. the ``kernels`` JSON line, then the result line.
 
 Per-shape timings, the serving runs and the decode profiles also go to
 ``build/chip_smoke.json`` (git-ignored).
@@ -197,6 +217,15 @@ TAIL_LENS = (64, 448)  # unique tail per request, uniform from the seed
 PAGED_REQUESTS = 8
 PAGED_NEW_TOKENS = 32
 # the MoE cell: deepseek-moe-16b's expert GEMMs, (name, N, K) per expert
+TRAIN_BATCH, TRAIN_SEQ = 16, 256  # the full-width train step's tokens
+TRAIN_STEPS = 8
+TRAIN_OPT = dict(lr=5e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+# one smoke step on the card against the CPU (tests/test_torch_train.py
+# derives these gates against JAX): loss, grad norm, moments within this
+# share of each leaf's largest |m| / |v|, new params within 1e-3 * lr where
+# |m| is above 1e-3 of its leaf's largest and within 2 * lr everywhere
+TRAIN_TOL = dict(loss_rtol=2e-6, gnorm_rtol=1e-5, moment_rel=2e-5)
+
 MOE_ARCH = "deepseek-moe-16b"
 MOE_GEMMS = (("up", 1408, 2048), ("gate", 1408, 2048), ("down", 2048, 1408))
 MOE_EXPERTS, MOE_TOP_K = 64, 6
@@ -1642,6 +1671,242 @@ def serve_mix(spec, cfg, policy, runs_spec, prompts, tag: str,
     return runs, launches
 
 
+def train_step_card_vs_cpu(dev) -> dict:
+    """One quickstart-settings step of granite-3-2b smoke (binary, fp32) on
+    the card and on the CPU from the same numpy init and batch, held to
+    ``TRAIN_TOL``.  Returns the largest errors."""
+    from repro_torch.data import synthetic
+    from repro_torch.interop import params_from_numpy, params_to_numpy
+    from repro_torch.launch import quickstart
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer
+    from repro_torch.tree import tree_leaves
+
+    spec = registry.get("granite-3-2b")
+    cfg = spec.smoke
+    host = params_to_numpy(trainer.init_all(
+        spec, cfg, torch.Generator().manual_seed(SEED))[0])
+    batch = synthetic.batch_at(synthetic.DataConfig(
+        cfg.vocab_size, quickstart.SEQ, quickstart.BATCH, seed=SEED), 0)
+    step = trainer.make_train_step(spec, cfg, quickstart.CTX, quickstart.OPT,
+                                   remat=True, bit_flip_metrics_on=True)
+    out = []
+    for d in ("cpu", dev):
+        params = params_from_numpy(host, d)
+        out.append(step(params, adamw.init(params), batch))
+    (cp, co, cm), (gp, go, gm) = out
+    lr = cm["lr"].item()
+    err = {k: abs(gm[k].item() - cm[k].item()) / abs(cm[k].item())
+           for k in ("loss", "grad_norm")}
+    err["moments (share of leaf max)"] = max(
+        ((g.cpu() - c).abs().max() / c.abs().max()).item()
+        for k in ("m", "v")
+        for g, c in zip(tree_leaves(go[k]), tree_leaves(co[k])))
+    big_err = all_err = 0.0
+    for g, c, m in zip(tree_leaves(gp), tree_leaves(cp), tree_leaves(co["m"])):
+        d = (g.cpu().double() - c.double()).abs()
+        big = m.abs() > 1e-3 * m.abs().max()
+        all_err = max(all_err, d.max().item() / lr)
+        if big.any():
+            big_err = max(big_err, d[big].max().item() / lr)
+    err["params, |m| above 1e-3 of max (x lr)"] = big_err
+    err["params, all (x lr)"] = all_err
+    ok = (err["loss"] <= TRAIN_TOL["loss_rtol"]
+          and err["grad_norm"] <= TRAIN_TOL["gnorm_rtol"]
+          and err["moments (share of leaf max)"] <= TRAIN_TOL["moment_rel"]
+          and big_err <= 1e-3 and all_err <= 2.0
+          and gm["lr"].item() == lr and go["step"].item() == 1)
+    print(f"training: smoke step card vs CPU (binary, fp32, remat): {err}; "
+          f"bit_flip_rate card {gm['bit_flip_rate'].item():.6f} CPU "
+          f"{cm['bit_flip_rate'].item():.6f}")
+    if not ok:
+        raise AssertionError(f"smoke train step on the card differs from the "
+                             f"CPU beyond {TRAIN_TOL}: {err}")
+    return err
+
+
+def training(dev) -> dict:
+    """Phase "training": the card against the CPU at smoke size, then
+    full-width granite-3-2b trained for ``TRAIN_STEPS`` steps (remat,
+    1-bit with XNOR-Net alpha, fp32 master and compute), converted, and
+    served packed on K1 + K2 and K1 + K3 and fake-quant; the packed export
+    is loaded back and served again.  Every stream must be identical
+    (§2.2.2)."""
+    import gc
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.ckpt.manager import export_packed
+    from repro_torch.core import converter
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.data import synthetic
+    from repro_torch.launch.serve import load_packed, packed_template
+    from repro_torch.models import registry
+    from repro_torch.nn.common import QCtx
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer
+    from repro_torch.tree import tree_leaves
+
+    summary = {"smoke step card vs CPU": train_step_card_vs_cpu(dev)}
+    spec = registry.get("granite-3-2b")
+    cfg = spec.config
+    dcfg = synthetic.DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                seed=SEED)
+
+    def init_and_step(policy):
+        params, opt_state = trainer.init_all(
+            spec, cfg, torch.Generator(device=dev).manual_seed(SEED))
+        return params, opt_state, trainer.make_train_step(
+            spec, cfg, QCtx(policy=policy, compute_dtype=torch.float32),
+            adamw.AdamWConfig(**TRAIN_OPT), remat=True,
+            bit_flip_metrics_on=True)
+
+    # Without alpha every ±1 GEMM scales the backward signal by about
+    # sqrt(K) (45-90 here), and 40 layers of that overflow fp32: one step
+    # shows it (reported, not gated); the cell trains with XNOR-Net alpha.
+    params, opt_state, step_fn = init_and_step(QuantPolicy.binary())
+    m = step_fn(params, opt_state, synthetic.batch_at(dcfg, 0))[2]
+    unscaled = {k: m[k].item() for k in ("loss", "grad_norm")}
+    print(f"training: QuantPolicy.binary() without alpha, one full-width "
+          f"step: {unscaled} (finite grad norm: "
+          f"{math.isfinite(unscaled['grad_norm'])})")
+    summary["binary() without alpha, one step"] = unscaled
+    del params, opt_state, step_fn, m
+    torch.cuda.empty_cache()
+
+    binary = QuantPolicy.binary(scale=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt_state, step_fn = init_and_step(binary)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    watch = {k: params["layers"][k[0]]["mlp"][k[1]]["w"].clone()
+             for k in ((0, "down"), (cfg.n_layers - 1, "up"))}
+    watch["embed"] = params["embed"]["table"].clone()
+    torch.cuda.synchronize()
+    print(f"training: granite-3-2b full width, {cfg.n_layers} layers, "
+          f"{n_params} params, QuantPolicy.binary(scale=True), fp32; init "
+          f"{time.perf_counter() - t0:.3f}s; remat, {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens a step, AdamW {TRAIN_OPT}")
+    steps = []
+    for i in range(TRAIN_STEPS):
+        batch = synthetic.batch_at(dcfg, i)
+        if i == TRAIN_STEPS - 1:  # the last step under the profiler
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                params, opt_state, m = step_fn(params, opt_state, batch)
+                torch.cuda.synchronize()
+            steps.append({k: m[k].item() for k in (
+                "loss", "grad_norm", "bit_flip_rate", "lr")})
+            print(f"training step {i + 1} (profiled): "
+                  f"loss={steps[-1]['loss']:.6f}")
+            continue
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        row = {k: m[k].item() for k in ("loss", "grad_norm", "bit_flip_rate",
+                                        "lr")}
+        row["ms"] = ms
+        steps.append(row)
+        print(f"training step {i + 1}: loss={row['loss']:.6f} grad_norm="
+              f"{row['grad_norm']:.6f} bit_flip_rate="
+              f"{row['bit_flip_rate']:.8f} lr={row['lr']:.3e} {ms:.3f} ms")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    median_ms = statistics.median(r["ms"] for r in steps[1:-1])
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (median_ms / 1e3)
+    by_name = {}
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA:
+            by_name[evt.key] = (by_name.get(evt.key, 0.0)
+                                + getattr(evt, "self_device_time_total", 0.0))
+    device_ms = sum(by_name.values()) / 1e3
+    gemm_ms = sum(v for k, v in by_name.items() if "gemm" in k.lower()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"training profile (step {TRAIN_STEPS}): device {device_ms:.3f} ms, "
+          f"busy share {device_ms / median_ms:.4f} of the median step; "
+          f"kernels named *gemm* {gemm_ms:.3f} ms; top: "
+          + "; ".join(f"{k[:70]} {v / 1e3:.3f}ms" for k, v in top))
+    def now(k):
+        if k == "embed":
+            return params["embed"]["table"]
+        return params["layers"][k[0]]["mlp"][k[1]]["w"]
+
+    changed = {k: not torch.equal(v, now(k)) for k, v in watch.items()}
+    print(f"training: median step {median_ms:.3f} ms after the first = "
+          f"{tok_s:.3f} tokens/s; peak memory (max_memory_allocated) "
+          f"{peak:.3f} GB; master changed {changed}")
+    if not all(math.isfinite(r["loss"]) for r in steps):
+        raise AssertionError(f"non-finite training loss: {steps}")
+    if not steps[0]["bit_flip_rate"] > 0 or not all(changed.values()):
+        raise AssertionError("the full-width step did not move the master")
+    summary["full width"] = dict(
+        steps=steps, median_step_ms=median_ms, tokens_per_s=tok_s,
+        peak_memory_gb=peak, params=n_params, device_ms=device_ms,
+        gemm_ms=gemm_ms,
+        top_kernels_ms=[[k[:90], v / 1e3] for k, v in top])
+    del opt_state, watch, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    packed, report = converter.convert(params, binary)
+    torch.cuda.synchronize()
+    print(f"training: trained model converted in "
+          f"{time.perf_counter() - t0:.3f}s; {report.summary()}")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in PROMPT_LENS]
+    runs, launches = serve_mix(
+        spec, cfg, binary, (("packed-vpu", packed, "vpu"),
+                            ("packed-mxu", packed, "mxu"),
+                            ("fake-quant", params, "vpu")), prompts,
+        "trained ", profile=())
+    for label in ("packed-vpu", "packed-mxu"):
+        if not same_streams(runs, label, "fake-quant"):
+            raise AssertionError(f"§2.2.2 violated on the trained model: "
+                                 f"{label} != fake-quant")
+    lv, lm_, lf = (launches[k] for k in ("packed-vpu", "packed-mxu",
+                                          "fake-quant"))
+    if not (lv["pack_sign"] > 0 and lv["xnor_mismatch"] > 0
+            and lm_["pack_sign"] > 0 and lm_["xnor_dot_mxu"] > 0
+            and not any(lf.values())):
+        raise AssertionError(f"trained 1-bit serving did not run through "
+                             f"K1 / K2 / K3: {launches}")
+    print("training: trained model's greedy streams identical for "
+          "packed-vpu, packed-mxu and fake-quant (§2.2.2)")
+
+    path = ROOT / "build" / "trained_granite_3_2b.packed.npz"
+    t0 = time.perf_counter()
+    export_packed(params, binary, str(path))
+    size = path.stat().st_size
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    loaded = load_packed(str(path), packed_template(cfg, binary), dev)
+    path.unlink()
+    print(f"training: export_packed + load_packed {size} bytes in "
+          f"{time.perf_counter() - t0:.3f}s")
+    runs_npz, _ = serve_mix(spec, cfg, binary,
+                            (("packed-vpu from .npz", loaded, "vpu"),),
+                            prompts, "trained ", "packed-vpu from .npz",
+                            profile=())
+    runs["packed-vpu from .npz"] = runs_npz["packed-vpu from .npz"]
+    if not same_streams(runs, "packed-vpu from .npz", "packed-vpu"):
+        raise AssertionError("the exported / loaded packed model serves "
+                             "other tokens than the converted one")
+    print("training: exported and loaded packed model serves the same "
+          "greedy streams")
+    summary["serving the trained model"] = {
+        k: {kk: vv for kk, vv in v.items() if kk != "results"}
+        for k, v in runs.items()}
+    summary["npz bytes"] = size
+    return summary
+
+
 def moe_packed_model(cfg, dev, policy):
     """deepseek-moe-16b's params in the draw order of ``lm.init`` (embed,
     then layer by layer, then the head) from a seeded generator on the
@@ -2623,6 +2888,9 @@ def main() -> int:
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     print(f"timing phase {time.perf_counter() - t0:.3f}s")
     t0 = time.perf_counter()
+    train_summary = training(dev)
+    print(f"training phase {time.perf_counter() - t0:.3f}s")
+    t0 = time.perf_counter()
     launches, serve_summary = serving(dev)
     print(f"serving phase {time.perf_counter() - t0:.3f}s")
     t0 = time.perf_counter()
@@ -2656,6 +2924,7 @@ def main() -> int:
         "graph_node_floor_ms": floor_ms,
         "prologue_layers (K1, K4 w4a4)": prologue_layers,
         "prologue_timing_rows": prologue_rows,
+        "training": train_summary,
         "serving": serve_summary,
         "launches": launches}, indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -19,6 +19,12 @@ expert-batched kernels (1-bit sign words on K7 / K8, DoReFa plane stacks
 on K9 / K10 with ``--quant wXaY``).  The model is initialised whole in
 fp32 before packing, so cut full-width deepseek-moe with ``--layers``.
 
+``--packed PATH`` serves a packed checkpoint instead of a seeded model:
+the ``.npz`` that ``python -m repro_torch.launch.train --export-packed`` (or
+the JAX package's ``export_packed``) wrote, read by :func:`load_packed` into
+the converter's tree for ``--arch`` / ``--quant`` without building the fp32
+model.
+
 ``--kv-block-size N`` swaps the per-slot contiguous KV slabs for the
 block-table paged pool (greedy tokens stay bit-identical); add
 ``--prefill-chunk`` to interleave long-prompt prefill with decode steps and
@@ -38,6 +44,8 @@ Example:
       --smoke --device cpu --quant w4a4 --check-fakequant
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
       --smoke --device cpu --prompts 2 --new-tokens 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
+      --smoke --device cpu --packed /tmp/g.packed.npz
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b \\
       --smoke --device cpu --backend mxu --check-fakequant
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b \\
@@ -55,15 +63,19 @@ import time
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch import resolve_device
+from repro_torch.ckpt.manager import _unflatten_into
 from repro_torch.core import converter
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.kernels.dispatch import GemmConfig
 from repro_torch.models import lm as lm_model
 from repro_torch.models import registry
 from repro_torch.nn.common import QCtx
+from repro_torch.interop import params_from_numpy
 from repro_torch.serve.engine import Engine, EngineConfig, Request, Scheduler
+from repro_torch.tree import tree_map
 
 
 def parse_quant(s: str) -> QuantPolicy:
@@ -78,6 +90,33 @@ def parse_quant(s: str) -> QuantPolicy:
         w, a = s[1:].split("a")
         return QuantPolicy.quantized(int(w), int(a))
     raise ValueError(f"bad quant {s!r}")
+
+
+def packed_template(cfg, policy: QuantPolicy):
+    """The converter's output tree for ``cfg`` under ``policy``, shapes and
+    dtypes only: traced under ``FakeTensorMode`` (meta storage), so the fp32
+    model is never built."""
+    with FakeTensorMode():
+        tmpl, _ = converter.convert(lm_model.init(torch.Generator(), cfg),
+                                    policy)
+    return tmpl
+
+
+def load_packed(path: str, template, device: str | torch.device = "cuda"):
+    """Read an ``export_packed`` ``.npz`` into ``template``'s tree on
+    ``device``.  Every leaf must have its template leaf's shape and dtype
+    (``uint32`` words load as the port's ``int32``)."""
+    with np.load(path) as data:
+        flat = {k: data[k] for k in data.files}
+    params = params_from_numpy(_unflatten_into(template, flat), device)
+
+    def check(t, x):
+        if x.shape != t.shape or x.dtype != t.dtype:
+            raise ValueError(
+                f"{path}: a leaf is {x.dtype}{tuple(x.shape)}, the model "
+                f"wants {t.dtype}{tuple(t.shape)}")
+    tree_map(check, template, params)
+    return params
 
 
 def stream_agreement(got: dict, want: dict) -> tuple[int, int, int | None]:
@@ -119,6 +158,9 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--backend", choices=("vpu", "mxu", "xla"), default="vpu",
                     help="base GEMM backend; k-bit layers resolve it onto "
                          "the vpu-k*/mxu-k* plane kernels")
+    ap.add_argument("--packed", default=None, metavar="PATH",
+                    help="serve this packed checkpoint (from train.py "
+                         "--export-packed) instead of a seeded model")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut depth to N layers (widths stay)")
     ap.add_argument("--prompts", type=int, default=4,
@@ -167,13 +209,22 @@ def main(argv: list[str] | None = None) -> dict:
     ctx = QCtx(policy=policy, compute_dtype=torch.float32,
                gemm_config=GemmConfig(backend=args.backend))
 
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    params = lm_model.init(gen, cfg)
-    packed, report = converter.convert(params, policy)
-    print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"device {dev}, quant {args.quant}; packed {report.summary()}")
-    if not args.check_fakequant:
-        del params
+    if args.packed:
+        if args.check_fakequant:
+            raise SystemExit("--check-fakequant needs the float model; a "
+                             "--packed checkpoint holds packed words only")
+        packed = load_packed(args.packed, packed_template(cfg, policy), dev)
+        print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+              f"device {dev}, quant {args.quant}; loaded packed checkpoint "
+              f"{args.packed}")
+    else:
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        params = lm_model.init(gen, cfg)
+        packed, report = converter.convert(params, policy)
+        print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+              f"device {dev}, quant {args.quant}; packed {report.summary()}")
+        if not args.check_fakequant:
+            del params
 
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(0, cfg.vocab_size, (args.prompt_len,)).astype(np.int32)

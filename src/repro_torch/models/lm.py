@@ -16,6 +16,7 @@ import dataclasses
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.qlayers import dense_init
 from repro_torch.nn import attention as attn_lib
@@ -141,15 +142,27 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
 
 
-def forward(params: Params, cfg: LMConfig, ctx: QCtx,
-            tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def forward(params: Params, cfg: LMConfig, ctx: QCtx, tokens: torch.Tensor,
+            remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence causal forward.  Returns (logits (B,S,V), aux loss):
-    the sum of the MoE layers' load-balance losses, 0 for dense stacks."""
+    the sum of the MoE layers' load-balance losses, 0 for dense stacks.
+
+    ``remat`` runs each block under ``torch.utils.checkpoint`` (the JAX
+    package's ``jax.checkpoint``): the backward pass keeps only the blocks'
+    inputs and recomputes one block at a time.  The recomputation repeats
+    the forward bit for bit (MoE routing included: top-k is a stable sort).
+    The JAX function's ``scan_blocks`` and ``seq_parallel`` are XLA / GSPMD
+    lowering patterns (a ``lax.scan`` over stacked layers, sequence-sharding
+    constraints); the port has neither argument."""
     x = _embed(params, cfg, ctx, tokens)
     positions = _positions(*tokens.shape, tokens.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for i, blk in enumerate(params["layers"]):
-        x, aux = block_forward(blk, i, x, positions, cfg, ctx)
+        if remat:
+            x, aux = checkpoint(block_forward, blk, i, x, positions, cfg, ctx,
+                                use_reentrant=False)
+        else:
+            x, aux = block_forward(blk, i, x, positions, cfg, ctx)
         aux_total = aux_total + aux
     return _logits(params, cfg, ctx, x), aux_total
 

@@ -14,12 +14,17 @@ import torch
 
 from repro_torch.core import bitpack, converter, quant
 from repro_torch.core.policy import QuantPolicy
+from repro_torch.data import synthetic
 from repro_torch.kernels import (_cuda, attn_decode, dispatch, kbit_gemm,
                                  kbit_mxu, pack_bits, xnor_gemm)
+from repro_torch.launch import quickstart
 from repro_torch.models import lm, registry
 from repro_torch.nn import attention
 from repro_torch.nn.common import QCtx
+from repro_torch.optim import adamw
 from repro_torch.serve import engine
+from repro_torch.train import trainer
+from repro_torch.tree import tree_leaves, tree_map
 
 pytestmark = pytest.mark.gpu
 
@@ -873,3 +878,86 @@ def test_moe_smoke_serving_w4a4_vpu_equals_mxu_on_card(cuda):
         assert sorted(got) == sorted(streams[0]) == list(range(len(prompts)))
         for rid in got:
             np.testing.assert_array_equal(got[rid], streams[0][rid])
+
+
+# ---------------------------------------------------------------------------
+# training on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_smoke_train_step_card_matches_cpu(cuda, remat):
+    """One quickstart step of granite smoke (binary, fp32) on the card and
+    on the CPU from the same init and batch.  Loss within rtol 2e-6, grad
+    norm 1e-5, moments within 2e-5 of each leaf's largest |m| / |v|, and
+    the new params within 1e-3 * lr wherever |m| is above 1e-3 of its
+    leaf's largest, within 2 * lr everywhere (AdamW's first step moves a
+    weight by about lr * sign(g); tests/test_torch_train.py's docstring
+    derives these gates against JAX)."""
+    spec = registry.get("granite-3-2b")
+    cfg = spec.smoke
+    host, _ = trainer.init_all(spec, cfg, torch.Generator().manual_seed(3))
+    batch = synthetic.batch_at(synthetic.DataConfig(cfg.vocab_size, 32, 16), 0)
+    step = trainer.make_train_step(
+        spec, cfg, QCtx(policy=QuantPolicy.binary(),
+                        compute_dtype=torch.float32),
+        quickstart.OPT, remat=remat,
+        bit_flip_metrics_on=True)
+    out = []
+    for dev in ("cpu", cuda):
+        params = tree_map(lambda x: x.to(dev, copy=True), host)
+        out.append(step(params, adamw.init(params), batch))
+    (cp, co, cm), (gp, go, gm) = out
+    np.testing.assert_allclose(gm["loss"].item(), cm["loss"].item(), rtol=2e-6)
+    np.testing.assert_allclose(gm["grad_norm"].item(),
+                               cm["grad_norm"].item(), rtol=1e-5)
+    assert gm["lr"].item() == cm["lr"].item()
+    lr = cm["lr"].item()
+    for g, c, m in zip(tree_leaves(gp), tree_leaves(cp), tree_leaves(co["m"])):
+        d = (g.cpu().double() - c.double()).abs()
+        big = m.abs() > 1e-3 * m.abs().max()
+        assert d.max() <= 2 * lr
+        assert not big.any() or d[big].max() <= 1e-3 * lr
+    for k in ("m", "v"):
+        for g, c in zip(tree_leaves(go[k]), tree_leaves(co[k])):
+            assert (g.cpu() - c).abs().max() <= 2e-5 * c.abs().max()
+    assert go["step"].item() == 1
+
+
+@pytest.mark.parametrize("backend", ["vpu", "mxu"])
+def test_trained_smoke_model_packed_equals_fakequant_on_card(cuda, backend):
+    """The quickstart's 120 steps on the card, then the trained model packed
+    on K1 + K2 (``vpu``) or K1 + K3 (``mxu``) gives the fake-quant greedy
+    streams exactly (§2.2.2 on trained weights)."""
+    spec = registry.get("granite-3-2b")
+    params, opt_state = trainer.init_all(
+        spec, spec.smoke, torch.Generator(device=cuda).manual_seed(0))
+    losses = []
+    params, _ = quickstart.train(params, opt_state, on_step=lambda i, p, m:
+                                 losses.append(m["loss"].item()))
+    assert all(math.isfinite(x) for x in losses)
+    assert losses[-1] < 0.6 * losses[0]
+    packed, _ = converter.convert(params, QuantPolicy.binary())
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, spec.smoke.vocab_size, (n,)).astype(np.int32)
+               for n in (8, 8, 5, 12)]
+    streams = {}
+    for label, p in (("packed", packed), ("fake-quant", params)):
+        ctx = QCtx(policy=QuantPolicy.binary(), compute_dtype=torch.float32,
+                   gemm_config=dispatch.GemmConfig(backend=backend))
+        sched = engine.Scheduler(engine.Engine(
+            spec, spec.smoke, ctx, p, engine.EngineConfig(
+                batch=2, cache_len=64, max_new_tokens=12)))
+        for pr in prompts:
+            sched.submit(engine.Request(prompt=pr))
+        _cuda.reset_launches()
+        streams[label] = sched.run()
+        if label == "packed":
+            gemm = "xnor_mismatch" if backend == "vpu" else "xnor_dot_mxu"
+            assert _cuda.LAUNCHES["pack_sign"] > 0
+            assert _cuda.LAUNCHES[gemm] > 0
+        else:
+            assert not any(_cuda.LAUNCHES.values())
+    assert sorted(streams["packed"]) == list(range(len(prompts)))
+    for rid, toks in streams["fake-quant"].items():
+        np.testing.assert_array_equal(streams["packed"][rid], toks)
