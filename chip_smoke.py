@@ -8,7 +8,8 @@ scheduler on those kernels: packed 1-bit and packed DoReFa w4a4 on the
 contiguous cache, and packed 1-bit on the paged cache with chunked prefill,
 shared prefixes and the flash-decode kernel at every KV tier; then serves
 the MoE deepseek-moe-16b at full width, packed 1-bit and packed DoReFa
-w4a4, on the expert-batched kernels.
+w4a4, on the expert-batched kernels; last, the paper's binary LeNet and
+ResNet-18 at full width, their convs through im2col on the same kernels.
 
     python3 chip_smoke.py            # needs one CUDA GPU (sm_90a) and nvcc
 
@@ -129,7 +130,28 @@ Phases (any failure exits non-zero before the result line):
      K9 / K10 must launch 3 x MoE layers x (decode steps + prefills) times
      on the ``vpu`` / ``mxu`` runs and never elsewhere, K4 on every packed
      run;
-6. the ``kernels`` JSON line, then the result line.
+6. cnn: the paper's binary CNNs (``models/cnn.py``, fp32), their convs
+   as im2col + the packed GEMMs on K1-K6:
+   - smoke LeNet-MNIST and ResNet-18-CIFAR from one seeded init on the CPU
+     and on the card, fp / 1-bit / w4a4: logits card vs CPU within
+     ``CNN_CARD_ATOL`` while no binarized activation differs (one that does
+     must lie within ``CNN_TIE_EPS`` of its boundary in the first layer
+     where any differs); on the card packed ``vpu`` == ``mxu`` (==
+     fake-quant at 1 bit) at conv K 72 / 144 / 200;
+   - full width, seeded weights: LeNet (64 / 64 / 1000, 28 x 28, batch
+     256) and ResNet-18 (widths 64-512, 32 x 32, batch 128); 1-bit packed
+     ``vpu`` == ``mxu`` == fake-quant logits bit for bit; w4a4 ``vpu-k4``
+     == ``mxu-k4`` and every binarized layer, fed fake-quant's input,
+     within ``rtol=1e-4, atol=2e-4`` of fake-quant (the whole model
+     reported); each packed forward launches its prologue (K1 / K4) and
+     GEMM (K2 / K3 / K5 / K6) once per binarized layer, fake-quant none;
+     the median forward ms of every variant and a profile of each packed
+     variant (device time of K1-K6 and the largest kernels per forward,
+     with the K1-K6 launches the trace holds);
+   - ``CNN_TRAIN_STEPS`` steps of full-width binary LeNet with the
+     ``binary_mnist`` twin's step, then packed ``vpu`` == ``mxu`` ==
+     fake-quant on the trained weights;
+7. the ``kernels`` JSON line, then the result line.
 
 Per-shape timings, the serving runs and the decode profiles also go to
 ``build/chip_smoke.json`` (git-ignored).
@@ -225,6 +247,23 @@ TRAIN_OPT = dict(lr=5e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
 # share of each leaf's largest |m| / |v|, new params within 1e-3 * lr where
 # |m| is above 1e-3 of its leaf's largest and within 2 * lr everywhere
 TRAIN_TOL = dict(loss_rtol=2e-6, gnorm_rtol=1e-5, moment_rel=2e-5)
+
+# the CNN phase: the paper's binary LeNet-MNIST and ResNet-18-CIFAR
+# (Table 1), fp32 compute
+CNN_ARCHS = ("lenet-mnist", "resnet18-cifar10")
+CNN_WIDTHS = {"lenet-mnist": (64, 64, 1000, 28, 1),
+              "resnet18-cifar10": ((64, 128, 256, 512), 32, 3)}
+CNN_BATCH = {"lenet-mnist": 256, "resnet18-cifar10": 128}
+CNN_SMOKE_BATCH = 16
+# smoke logits, card against CPU, while no binarized activation differs
+# (tests/test_torch_cnn.py measures JAX against the port on the CPU at up to
+# 1.6e-6); a differing one must lie within CNN_TIE_EPS of its sign or code
+# boundary in the first layer where any differs
+CNN_CARD_ATOL = 1e-4
+CNN_TIE_EPS = 1e-5
+CNN_TRAIN_STEPS = 20
+CNN_TIMING_REPS = 10
+CNN_PROFILE_REPS = 5  # forwards in one profiler window
 
 MOE_ARCH = "deepseek-moe-16b"
 MOE_GEMMS = (("up", 1408, 2048), ("gate", 1408, 2048), ("down", 2048, 1408))
@@ -1735,9 +1774,6 @@ def training(dev) -> dict:
     (§2.2.2)."""
     import gc
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.ckpt.manager import export_packed
     from repro_torch.core import converter
     from repro_torch.core.policy import QuantPolicy
@@ -1794,10 +1830,8 @@ def training(dev) -> dict:
     for i in range(TRAIN_STEPS):
         batch = synthetic.batch_at(dcfg, i)
         if i == TRAIN_STEPS - 1:  # the last step under the profiler
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                params, opt_state, m = step_fn(params, opt_state, batch)
-                torch.cuda.synchronize()
+            by_name, (params, opt_state, m) = device_time_by_kernel(
+                lambda: step_fn(params, opt_state, batch))
             steps.append({k: m[k].item() for k in (
                 "loss", "grad_norm", "bit_flip_rate", "lr")})
             print(f"training step {i + 1} (profiled): "
@@ -1818,18 +1852,14 @@ def training(dev) -> dict:
     peak = torch.cuda.max_memory_allocated() / 1e9
     median_ms = statistics.median(r["ms"] for r in steps[1:-1])
     tok_s = TRAIN_BATCH * TRAIN_SEQ / (median_ms / 1e3)
-    by_name = {}
-    for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA:
-            by_name[evt.key] = (by_name.get(evt.key, 0.0)
-                                + getattr(evt, "self_device_time_total", 0.0))
-    device_ms = sum(by_name.values()) / 1e3
-    gemm_ms = sum(v for k, v in by_name.items() if "gemm" in k.lower()) / 1e3
+    by_name = {k: ms for k, (ms, _) in by_name.items()}
+    device_ms = sum(by_name.values())
+    gemm_ms = sum(v for k, v in by_name.items() if "gemm" in k.lower())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     print(f"training profile (step {TRAIN_STEPS}): device {device_ms:.3f} ms, "
           f"busy share {device_ms / median_ms:.4f} of the median step; "
           f"kernels named *gemm* {gemm_ms:.3f} ms; top: "
-          + "; ".join(f"{k[:70]} {v / 1e3:.3f}ms" for k, v in top))
+          + "; ".join(f"{k[:70]} {v:.3f}ms" for k, v in top))
     def now(k):
         if k == "embed":
             return params["embed"]["table"]
@@ -1847,7 +1877,7 @@ def training(dev) -> dict:
         steps=steps, median_step_ms=median_ms, tokens_per_s=tok_s,
         peak_memory_gb=peak, params=n_params, device_ms=device_ms,
         gemm_ms=gemm_ms,
-        top_kernels_ms=[[k[:90], v / 1e3] for k, v in top])
+        top_kernels_ms=[[k[:90], v] for k, v in top])
     del opt_state, watch, m
     gc.collect()
     torch.cuda.empty_cache()
@@ -2762,15 +2792,34 @@ def full_cache(eng):
     return cache
 
 
+def device_time_by_kernel(fn, reps: int = 1):
+    """Run ``fn()`` ``reps`` times under ``torch.profiler``.  Returns
+    ({kernel name: (device ms, launches) per run}, the last run's result);
+    the dict is empty when the profiler recorded no device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            out = fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA:
+            ms, n = by_name.get(evt.key, (0.0, 0.0))
+            by_name[evt.key] = (
+                ms + getattr(evt, "self_device_time_total", 0.0) / 1e3 / reps,
+                n + evt.count / reps)
+    return by_name, out
+
+
 def profile_decode(eng, label: str, steps: int = 3) -> dict:
     """Where one decode step's time goes: wall time of ``steps`` plain
     decode steps (the batch at the last position of a full cache, so every
     cache row is attended), and the device time of the same steps under
     ``torch.profiler`` (kernels only, by name).  The device busy share is
     device time over unprofiled wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     b = eng.ecfg.batch
     tok = torch.zeros((b, 1), dtype=torch.long, device=eng.device)
     pos = torch.full((b,), eng.ecfg.cache_len - 1, dtype=torch.int32,
@@ -2785,16 +2834,9 @@ def profile_decode(eng, label: str, steps: int = 3) -> dict:
             eng._decode(cache, tok, pos)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(steps):
-                eng._decode(cache, tok, pos)
-            torch.cuda.synchronize()
-    by_name = {}
-    for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA:
-            us = getattr(evt, "self_device_time_total", 0.0)
-            by_name[evt.key] = by_name.get(evt.key, 0.0) + us / steps
+        by_name, _ = device_time_by_kernel(
+            lambda: eng._decode(cache, tok, pos), steps)
+    by_name = {k: ms * 1e3 for k, (ms, _) in by_name.items()}  # us
     device_ms = sum(by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     # every kernel of csrc/flash_decode.cu (K11: decode tile, split
@@ -2819,6 +2861,362 @@ def profile_decode(eng, label: str, steps: int = 3) -> dict:
               f"{us['k4']:.1f}us; top: "
               + "; ".join(f"{k[:60]} {v:.1f}us" for k, v in top))
     return out
+
+
+def cnn_model(arch: str):
+    """(spec, init, forward) of one of the paper's CNNs."""
+    from repro_torch.models import cnn, registry
+
+    if arch == "lenet-mnist":
+        return registry.get(arch), cnn.lenet_init, cnn.lenet_forward
+    return registry.get(arch), cnn.resnet18_init, cnn.resnet18_forward
+
+
+def cnn_ctx(policy, backend: str = "vpu", log: dict | None = None):
+    """A float32 ``QCtx``; with ``log``, its ``conv`` and ``dense`` also
+    keep each layer's kind, options and input under the layer's path."""
+    from repro_torch.kernels.dispatch import GemmConfig
+    from repro_torch.nn.common import QCtx
+
+    class RecordingQCtx(QCtx):
+        def conv(self, p, x, path, **kw):
+            log[path] = ("conv", kw, x.detach().clone())
+            return super().conv(p, x, path, **kw)
+
+        def dense(self, p, x, path):
+            log[path] = ("dense", {}, x.detach().clone())
+            return super().dense(p, x, path)
+
+    cls = QCtx if log is None else RecordingQCtx
+    return cls(policy=policy, compute_dtype=torch.float32,
+               gemm_config=GemmConfig(backend=backend))
+
+
+def binarized(x: torch.Tensor, spec) -> torch.Tensor:
+    """What a quantized layer makes of its input: the sign at 1 bit, the
+    DoReFa code at k bits."""
+    if spec.a_bits == 1:
+        return x >= 0
+    return torch.round(x.clamp(0.0, 1.0) * (2**spec.a_bits - 1))
+
+
+def boundary_distance(x: torch.Tensor, spec) -> torch.Tensor:
+    if spec.a_bits == 1:
+        return x.abs()
+    u = x * (2**spec.a_bits - 1)
+    return (u - torch.floor(u) - 0.5).abs() / (2**spec.a_bits - 1)
+
+
+def differing_activations(policy, log_a: dict, log_b: dict) -> dict:
+    """Per quantized layer, how many binarized activations two runs'
+    inputs disagree on.  The first layer where any differ must see inputs
+    within ``CNN_TIE_EPS`` of the boundary there (rounding, not a fault)."""
+    out = {}
+    for path, (_, _, a) in log_a.items():
+        spec = policy.spec(path)
+        if spec.is_fp:
+            continue
+        b = log_b[path][2].to(a.device)
+        diff = binarized(a, spec) != binarized(b, spec)
+        n = int(diff.sum())
+        if n and not any(out.values()):
+            dist = boundary_distance(a, spec)[diff].max().item()
+            if dist > CNN_TIE_EPS:
+                raise AssertionError(
+                    f"{path}: {n} binarized activations differ, up to "
+                    f"{dist:.3g} from the boundary (> {CNN_TIE_EPS})")
+        out[path] = n
+    return out
+
+
+def cnn_launches(forward, params, cfg, ctx, x) -> tuple[torch.Tensor, dict]:
+    """Logits of one forward and the kernel launches it made (counts set
+    to 0 just before it and read just after)."""
+    from repro_torch.kernels import _cuda
+
+    _cuda.reset_launches()
+    with torch.no_grad():
+        y = forward(params, cfg, ctx, x)
+    torch.cuda.synchronize()
+    return y, {k: v for k, v in _cuda.LAUNCHES.items() if v}
+
+
+CNN_PACKED = {  # policy -> backend -> (prologue, GEMM) kernels
+    1: {"vpu": ("pack_sign", "xnor_mismatch"),
+        "mxu": ("pack_sign", "xnor_dot_mxu")},
+    4: {"vpu": ("quant_pack_planes", "kbit_plane_gemm"),
+        "mxu": ("quant_pack_planes", "kbit_mxu_gemm")}}
+
+
+def cnn_packed_runs(forward, params, packed, n_layers, cfg, policy, x,
+                    tag: str) -> dict:
+    """Packed ``vpu`` and ``mxu`` forwards, whose logits must be identical
+    and whose launches must be one prologue and one GEMM per binarized
+    layer; fake-quant launches no kernel.  Returns the logits by label."""
+    out = {}
+    fake, launched = cnn_launches(forward, params, cfg, cnn_ctx(policy), x)
+    if launched:
+        raise AssertionError(f"{tag}: fake-quant launched {launched}")
+    out["fake-quant"] = fake
+    for backend, names in CNN_PACKED[policy.w_bits].items():
+        y, launched = cnn_launches(forward, packed, cfg,
+                                   cnn_ctx(policy, backend), x)
+        if launched != {k: n_layers for k in names}:
+            raise AssertionError(f"{tag} packed-{backend}: launches "
+                                 f"{launched}, expected {n_layers} of "
+                                 f"each of {names}")
+        if not torch.isfinite(y).all():
+            raise AssertionError(f"{tag} packed-{backend}: non-finite logits")
+        out[f"packed-{backend}"] = y
+    if not torch.equal(out["packed-vpu"], out["packed-mxu"]):
+        raise AssertionError(f"{tag}: packed-vpu != packed-mxu")
+    if policy.w_bits == 1 and not torch.equal(out["packed-vpu"], fake):
+        raise AssertionError(f"{tag}: packed != fake-quant (§2.2.2)")
+    return out
+
+
+def cnn_smoke(dev) -> dict:
+    """Smoke LeNet / ResNet-18 from one seeded init on the CPU and on the
+    card: logits card vs CPU (``CNN_CARD_ATOL``, module constants), and on
+    each device packed ``vpu`` == ``mxu`` (== fake-quant at 1 bit)."""
+    from repro_torch.core import converter
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.tree import tree_map
+
+    policies = {"fp": QuantPolicy.full_precision(),
+                "binary": QuantPolicy.binary(),
+                "w4a4": QuantPolicy.quantized(4)}
+    summary = {}
+    for arch in CNN_ARCHS:
+        spec, init, forward = cnn_model(arch)
+        cfg = spec.smoke
+        host = init(torch.Generator().manual_seed(SEED), cfg)
+        x = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+            (CNN_SMOKE_BATCH, cfg.in_hw, cfg.in_hw, cfg.in_c)).astype(
+                np.float32))
+        runs = {}
+        for d in ("cpu", dev):
+            params = tree_map(lambda t: t.to(d), host)
+            for name, pol in policies.items():
+                log = {}
+                with torch.no_grad():
+                    y = forward(params, cfg, cnn_ctx(pol, log=log), x.to(d))
+                runs[(str(d), name)] = (y.cpu(), log)
+                if name != "fp" and d != "cpu":
+                    packed, rep = converter.convert(params, pol)
+                    cnn_packed_runs(forward, params, packed, rep.n_packed,
+                                    cfg, pol, x.to(d), f"{arch} smoke {name}")
+        for name, pol in policies.items():
+            (yc, logc), (yg, logg) = runs[("cpu", name)], runs[(str(dev),
+                                                                 name)]
+            flips = differing_activations(pol, logc, logg)
+            err = (yg - yc).abs().max().item()
+            n = sum(flips.values())
+            print(f"cnn smoke {arch} {name}: logits card vs CPU max |err| "
+                  f"{err:.3g}; {n} binarized activations differ"
+                  + ("" if name == "fp" else "; packed-vpu == packed-mxu"
+                     + (" == fake-quant" if name == "binary" else "")
+                     + " on the card"))
+            if n == 0 and err > CNN_CARD_ATOL:
+                raise AssertionError(f"cnn smoke {arch} {name}: card vs CPU "
+                                     f"{err} > {CNN_CARD_ATOL}")
+            summary[f"{arch} {name}"] = {"logits_err": err,
+                                         "differing_activations": n}
+    return summary
+
+
+def cnn_layer_errors(forward, params, packed, cfg, policy, x) -> float:
+    """Every quantized layer, fed the input fake-quant gives it: packed
+    (``vpu``) within the k-bit contract of fake-quant.  Returns the largest
+    error."""
+    log = {}
+    with torch.no_grad():
+        forward(params, cfg, cnn_ctx(policy, log=log), x)
+    ctx = cnn_ctx(policy)
+    worst = 0.0
+    for path, (kind, kw, xin) in log.items():
+        if policy.spec(path).is_fp:
+            continue
+        node_f, node_p = params, packed
+        for seg in path.split("/"):
+            node_f, node_p = node_f[seg], node_p[seg]
+        fn = ctx.conv if kind == "conv" else ctx.dense
+        with torch.no_grad():
+            want, got = fn(node_f, xin, path, **kw), fn(node_p, xin, path, **kw)
+        if not torch.allclose(got, want, **KBIT_TOL):
+            raise AssertionError(f"{path}: packed w4a4 differs from "
+                                 f"fake-quant beyond {KBIT_TOL}: max |err| "
+                                 f"{(got - want).abs().max().item()}")
+        worst = max(worst, (got - want).abs().max().item())
+    return worst
+
+
+def cnn_time(forward, params, cfg, ctx, x) -> float:
+    """Median ms of one forward (``CNN_TIMING_REPS`` after one warm-up),
+    host clock around a synchronised forward."""
+    times = []
+    with torch.no_grad():
+        for i in range(CNN_TIMING_REPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            forward(params, cfg, ctx, x)
+            torch.cuda.synchronize()
+            if i:
+                times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def cnn_full_width(dev) -> dict:
+    """LeNet (batch 256) and ResNet-18 CIFAR (batch 128) at full width from
+    seeded weights: 1-bit packed ``vpu`` == ``mxu`` == fake-quant; w4a4
+    ``vpu-k4`` == ``mxu-k4`` and every layer within the k-bit contract of
+    fake-quant (the whole model reported); launches gated; the forward
+    timed per variant and the packed forwards profiled."""
+    from repro_torch.core import converter
+    from repro_torch.core.policy import QuantPolicy
+
+    device = nvidia_smi("name,power.limit")
+    binary, w4a4 = QuantPolicy.binary(), QuantPolicy.quantized(4)
+    summary = {}
+    for arch in CNN_ARCHS:
+        spec, init, forward = cnn_model(arch)
+        cfg = spec.config
+        widths = ((cfg.c1, cfg.c2, cfg.fc1, cfg.in_hw, cfg.in_c)
+                  if arch == "lenet-mnist"
+                  else (cfg.widths, cfg.in_hw, cfg.in_c))
+        if widths != CNN_WIDTHS[arch]:
+            raise AssertionError(f"{arch} widths changed: {widths}")
+        b = CNN_BATCH[arch]
+        params = init(torch.Generator(device=dev).manual_seed(SEED), cfg)
+        x = torch.randn((b, cfg.in_hw, cfg.in_hw, cfg.in_c), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(
+                            SEED + 1))
+        row = {"batch": b}
+        variants = {"fp32": (params, cnn_ctx(QuantPolicy.full_precision()))}
+        for tag, pol in (("1-bit", binary), ("w4a4", w4a4)):
+            packed, rep = converter.convert(params, pol)
+            out = cnn_packed_runs(forward, params, packed, rep.n_packed, cfg,
+                                  pol, x, f"{arch} {tag}")
+            fake = out["fake-quant"]
+            agree = (out["packed-vpu"].argmax(-1)
+                     == fake.argmax(-1)).sum().item()
+            whole = (out["packed-vpu"] - fake).abs().max().item()
+            line = (f"cnn {arch} full width, batch {b}, {tag}: "
+                    f"{rep.n_packed} binarized layers; packed-vpu == "
+                    f"packed-mxu")
+            if pol.w_bits == 1:
+                line += " == fake-quant (bit for bit)"
+            else:
+                row["w4a4 layer max |err|"] = cnn_layer_errors(
+                    forward, params, packed, cfg, pol, x)
+                line += (f"; every layer within {KBIT_TOL} of fake-quant "
+                         f"(max |err| {row['w4a4 layer max |err|']:.3g}); "
+                         f"whole model vs fake-quant max |err| {whole:.3g}, "
+                         f"{agree} of {b} argmax agree (reported)")
+            n_binarized = rep.n_packed
+            print(line + f"; each packed run launched "
+                  f"{CNN_PACKED[pol.w_bits]['vpu'][0]} and its GEMM "
+                  f"{rep.n_packed} times; {rep.summary()}")
+            row[f"{tag} whole-model |err| vs fake-quant"] = whole
+            row[f"{tag} argmax agree"] = agree
+            variants[f"fake-quant {tag}"] = (params, cnn_ctx(pol))
+            for backend in ("vpu", "mxu"):
+                variants[f"packed-{backend} {tag}"] = (packed,
+                                                       cnn_ctx(pol, backend))
+        times = {}
+        for label, (p, ctx) in variants.items():
+            times[label] = cnn_time(forward, p, cfg, ctx, x)
+        row["forward_ms"] = times
+        print(f"cnn timing {arch} full width, batch {b}, median forward ms "
+              f"of {CNN_TIMING_REPS} ({device}): "
+              + "; ".join(f"{k} {v:.3f}" for k, v in times.items()))
+        profiles = {}
+        for tag, bits in (("1-bit", 1), ("w4a4", 4)):
+            for backend, names in CNN_PACKED[bits].items():
+                label = f"packed-{backend} {tag}"
+                p, ctx = variants[label]
+                with torch.no_grad():
+                    by_name, _ = device_time_by_kernel(
+                        lambda: forward(p, cfg, ctx, x), CNN_PROFILE_REPS)
+                top = sorted(([k[:90], ms, n] for k, (ms, n) in
+                              by_name.items()), key=lambda r: -r[1])
+                profiles[label] = top[:8]
+                device_ms = sum(ms for ms, _ in by_name.values())
+                ours = {}
+                for name in names:  # its symbols carry the name less "_gemm"
+                    hits = [v for k, v in by_name.items()
+                            if name.removesuffix("_gemm") in k]
+                    ours[name] = (sum(ms for ms, _ in hits),
+                                  sum(n for _, n in hits))
+                if not any(n for _, n in ours.values()):
+                    raise AssertionError(f"{arch} {label}: the profile shows "
+                                         f"none of {names}: {top[:8]}")
+                profiles[label + " ms, launches"] = ours
+                print(f"cnn profile {arch} {label} ({device}), per forward "
+                      f"of {CNN_PROFILE_REPS}: device {device_ms:.3f} ms; "
+                      + ", ".join(f"{k} {v:.3f} ms ({n:g} of {n_binarized} "
+                                  "launches seen)"
+                                  for k, (v, n) in ours.items())
+                      + f" (largest {max(ours, key=lambda k: ours[k][0])}); "
+                      "top: " + "; ".join(f"{k[:60]} {v:.3f}ms"
+                                          for k, v, _ in top[:4]))
+        row["profiles"] = profiles
+        summary[arch] = row
+        del params, variants
+        torch.cuda.empty_cache()
+    return summary
+
+
+def cnn_trained(dev) -> dict:
+    """``CNN_TRAIN_STEPS`` steps of full-width binary LeNet with the
+    binary_mnist twin's step (batch 256, its AdamW settings), then the
+    trained weights packed: ``vpu`` == ``mxu`` == fake-quant logits."""
+    from repro_torch.core import converter
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.launch import binary_mnist
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer
+
+    spec, init, forward = cnn_model("lenet-mnist")
+    cfg = spec.config
+    b = CNN_BATCH["lenet-mnist"]
+    binary = QuantPolicy.binary()
+    params = init(torch.Generator(device=dev).manual_seed(SEED), cfg)
+    opt = adamw.init(params)
+    step = trainer.make_classifier_step(
+        forward, cfg, cnn_ctx(binary),
+        adamw.AdamWConfig(lr=1e-2, warmup_steps=5,
+                          total_steps=CNN_TRAIN_STEPS, weight_decay=0.0))
+    rng = np.random.default_rng(SEED)
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(CNN_TRAIN_STEPS):
+        xb, yb = binary_mnist._data(rng, b, cfg.in_hw)
+        params, opt, loss = step(params, opt, torch.from_numpy(xb).to(dev),
+                                 torch.from_numpy(yb).to(dev))
+        losses.append(loss.item())
+    secs = time.perf_counter() - t0
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite LeNet training loss: {losses}")
+    xt, yt = binary_mnist._data(np.random.default_rng(SEED + 1), b, cfg.in_hw)
+    xt = torch.from_numpy(xt).to(dev)
+    packed, rep = converter.convert(params, binary)
+    out = cnn_packed_runs(forward, params, packed, rep.n_packed, cfg, binary,
+                          xt, "trained lenet-mnist")
+    acc = (out["fake-quant"].argmax(-1).cpu()
+           == torch.from_numpy(yt)).to(torch.float32).mean().item()
+    print(f"cnn trained lenet-mnist: {CNN_TRAIN_STEPS} full-width binary "
+          f"steps of {b} images in {secs:.3f}s, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; test accuracy {acc:.4f}; packed-vpu == "
+          f"packed-mxu == fake-quant on the trained weights (bit for bit)")
+    return {"losses": losses, "seconds": secs, "accuracy": acc}
+
+
+def cnn_phase(dev) -> dict:
+    """Phase "cnn": the paper's binary CNNs (smoke card vs CPU, full width,
+    trained)."""
+    return {"smoke": cnn_smoke(dev), "full width": cnn_full_width(dev),
+            "trained": cnn_trained(dev)}
 
 
 def main() -> int:
@@ -2903,6 +3301,9 @@ def main() -> int:
     launches.update(kbit_launches)
     serve_summary["MoE w4a4 cell"] = kbit_summary
     print(f"MoE w4a4 serving phase {time.perf_counter() - t0:.3f}s")
+    t0 = time.perf_counter()
+    cnn_summary = cnn_phase(dev)
+    print(f"cnn phase {time.perf_counter() - t0:.3f}s")
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -2926,6 +3327,7 @@ def main() -> int:
         "prologue_timing_rows": prologue_rows,
         "training": train_summary,
         "serving": serve_summary,
+        "cnn": cnn_summary,
         "launches": launches}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,22 +1,27 @@
-"""Model converter — BMXNet §2.2.3 (PyTorch port of the dense part of
+"""Model converter — BMXNet §2.2.3 (PyTorch port of
 ``repro.core.converter``).
 
 Walks a float checkpoint (a nested dict/list of tensors) and, for every
-dense layer the :class:`QuantPolicy` marks packable, replaces the float
-weight ``w (d_in, d_out)`` with ``w_packed`` packed along the contraction
-axis (the layout the GEMM kernels want): ``(d_out, Kw)`` int32 sign words at
-1 bit, or a ``(w_bits, d_out, Kw)`` int32 bit-plane stack of DoReFa weight
-codes at 2..8 bits (the codes of the whole layer tensor, as the fake-quant
-path quantizes it).  An optional per-output-channel ``scale`` (XNOR-Net
-alpha) rides along.  Everything else (embedding, norms, biases) is left
-untouched.  ``convert`` returns the new tree and a :class:`SizeReport` with
-the paper's accounting (k/32 of the fp32 bytes at k bits).
+dense or conv layer the :class:`QuantPolicy` marks packable, replaces the
+float weight with ``w_packed`` packed along the contraction axis (the
+layout the GEMM kernels want): ``(d_out, Kw)`` int32 sign words at 1 bit,
+or a ``(w_bits, d_out, Kw)`` int32 bit-plane stack of DoReFa weight codes
+at 2..8 bits (the codes of the whole layer tensor, as the fake-quant path
+quantizes it).  A dense ``w (d_in, d_out)`` packs its transpose; a conv
+``w (h, w, c_in, c_out)`` packs ``(c_out, h*w*c_in)``, the flattened patch
+axis of the im2col path, and adds ``shape_hwio``, an int64 tensor on the
+host (four numbers the packed conv reads on every call without a device
+synchronisation).  An optional per-output-channel ``scale`` (XNOR-Net
+alpha, over every axis but ``c_out`` for a conv) rides along.  Everything
+else (embedding, first conv, norms, biases, head) is left untouched.
+``convert`` returns the new tree and a :class:`SizeReport` with the paper's
+accounting (k/32 of the fp32 bytes at k bits); :func:`model_nbytes` sizes
+a whole checkpoint.
 
 MoE expert stacks (a dict of ``up`` / ``gate`` / ``down`` tensors of shape
 ``(E, d_in, d_out)``) pack per expert along ``d_in`` into ``{name}_packed``
 ``(E, d_out, Kw)`` sign words at 1 bit, or ``(E, w_bits, d_out, Kw)`` plane
-stacks of the DoReFa codes of the whole stack at k bits.  Conv weights come
-with slice 5.
+stacks of the DoReFa codes of the whole stack at k bits.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch
 
 from repro_torch.core import bitpack, quant
 from repro_torch.core.policy import QuantPolicy, QuantSpec
+from repro_torch.tree import tree_leaves
 
 Pytree = Any
 
@@ -93,8 +99,8 @@ def _pack_flat(flat: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
 
 def convert(params: Pytree, policy: QuantPolicy, *,
             keep_float: bool = False) -> tuple[Pytree, SizeReport]:
-    """Pack all packable-policy dense weights.  ``keep_float`` additionally
-    retains the float weight next to the packed one."""
+    """Pack all packable-policy dense and conv weights.  ``keep_float``
+    additionally retains the float weight next to the packed one."""
     report = SizeReport(leaves=[])
 
     def rec(node: Pytree, path: str) -> Pytree:
@@ -108,11 +114,8 @@ def convert(params: Pytree, policy: QuantPolicy, *,
             return node
         spec = policy.spec(path) if path else None
         w = node.get("w")
-        if isinstance(w, torch.Tensor) and spec is not None and _packable(spec):
-            if w.ndim != 2:
-                raise NotImplementedError(
-                    f"{path}: packing {w.ndim}-d weights (conv) comes with a "
-                    "later slice of the port")
+        if (isinstance(w, torch.Tensor) and w.ndim in (2, 4)
+                and spec is not None and _packable(spec)):
             return _pack_layer(node, path, spec, report, keep_float)
         up = node.get("up")
         if (isinstance(up, torch.Tensor) and up.ndim == 3 and spec is not None
@@ -151,11 +154,22 @@ def _pack_experts(node, path, spec: QuantSpec, report: SizeReport,
 
 def _pack_layer(node, path, spec: QuantSpec, report: SizeReport,
                 keep_float: bool):
-    w = node["w"]  # (d_in, d_out)
-    w_packed = _pack_flat(w.to(torch.float32).T, spec)  # (.., d_out, Kw)
-    out = {"w_packed": w_packed}
+    w = node["w"]
+    if w.ndim == 2:  # (d_in, d_out)
+        flat = w.T  # (d_out, d_in): pack along the contraction axis
+        out = {}
+        alpha_dims = (0,)
+    else:  # (h, w, c_in, c_out)
+        h, ww, c_in, c_out = w.shape
+        flat = w.reshape(h * ww * c_in, c_out).T
+        # int64 on the host, as the JAX converter's np.array
+        out = {"shape_hwio": torch.tensor([h, ww, c_in, c_out],
+                                          dtype=torch.int64, device="cpu")}
+        alpha_dims = (0, 1, 2)
+    w_packed = _pack_flat(flat.to(torch.float32), spec)  # (.., d_out, Kw)
+    out["w_packed"] = w_packed
     if spec.scale:
-        out["scale"] = w.abs().mean(dim=0)
+        out["scale"] = w.abs().mean(dim=alpha_dims)
     if keep_float:
         out["w"] = w
     if "b" in node:
@@ -170,3 +184,15 @@ def _pack_layer(node, path, spec: QuantSpec, report: SizeReport,
         _fp32_bytes(w) + (_fp32_bytes(node["b"]) if "b" in node else 0),
         after, True))
     return out
+
+
+def model_nbytes(params: Pytree) -> int:
+    """Size of a checkpoint in bytes (the paper counts fp32 storage:
+    floating leaves at 4 bytes an element, others at their own size)."""
+    total = 0
+    for leaf in tree_leaves(params):
+        if leaf.is_floating_point():
+            total += _fp32_bytes(leaf)
+        else:
+            total += leaf.numel() * leaf.element_size()
+    return total

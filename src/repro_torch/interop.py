@@ -6,7 +6,9 @@ converted, or its AdamW state ``{"m", "v", "step"}`` — and returns the same
 tree of torch tensors on ``device``.  The layouts stay the JAX package's
 (dense ``w`` is ``(d_in, d_out)``, ``w_packed`` is ``(d_out, Kw)``), and
 ``uint32`` packed words become ``int32`` tensors holding the same bits.
-Both packages then compute the same thing from the same numbers.
+A packed conv's ``shape_hwio`` (int64) stays on the host, where the packed
+conv reads it without a device synchronisation.  Both packages then compute
+the same thing from the same numbers.
 
 ``params_to_numpy(tree)`` is the other direction: host numpy arrays, with
 the converter's packed words (leaves named ``*_packed``) viewed back as
@@ -22,19 +24,25 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.tree import tree_map
 
 
 def params_from_numpy(tree: Any, device: str | torch.device = "cuda") -> Any:
     dev = resolve_device(device)
 
-    def conv(node):
+    def conv(node, where):
         a = np.asarray(node)
         if a.dtype == np.uint32:
             a = a.view(np.int32)
-        return torch.from_numpy(np.array(a, copy=True)).to(dev)
+        return torch.from_numpy(np.array(a, copy=True)).to(where)
 
-    return tree_map(conv, tree)
+    def rec(node, key):
+        if isinstance(node, dict):
+            return {k: rec(v, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(rec(v, key) for v in node)
+        return conv(node, "cpu" if key == "shape_hwio" else dev)
+
+    return rec(tree, None)
 
 
 def params_to_numpy(tree: Any) -> Any:

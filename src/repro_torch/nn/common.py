@@ -1,8 +1,9 @@
 """Shared NN building blocks: norms, RoPE, activations, the QCtx handle
 (PyTorch port of ``repro.nn.common``).
 
-Every internal GEMM in every model goes through ``QCtx.dense`` so the
-BMXNet quantization policy (core/policy.py) applies uniformly.
+Every internal GEMM in every model goes through ``QCtx.dense`` (or
+``QCtx.conv``) so the BMXNet quantization policy (core/policy.py) applies
+uniformly.
 """
 
 from __future__ import annotations
@@ -36,6 +37,12 @@ class QCtx:
         return qlayers.qdense(params, x, self.policy.spec(path),
                               compute_dtype=self.compute_dtype,
                               gemm_config=self.gemm_config)
+
+    def conv(self, params: Params, x: torch.Tensor, path: str,
+             **kw) -> torch.Tensor:
+        return qlayers.qconv(params, x, self.policy.spec(path),
+                             compute_dtype=self.compute_dtype,
+                             gemm_config=self.gemm_config, **kw)
 
 
 # --------------------------------------------------------------------------

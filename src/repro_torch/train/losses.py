@@ -1,9 +1,11 @@
 """Per-family training losses (PyTorch port of ``repro.train.losses``; the
-lm family — ``whisper_loss`` comes with whisper, ROADMAP A13)."""
+lm family — ``whisper_loss`` comes with whisper, ROADMAP A13), and the
+classifier loss of the CNN examples."""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 AUX_WEIGHT = 0.01  # MoE load-balance aux coefficient
 IGNORE = -1
@@ -32,3 +34,11 @@ def lm_loss(model_forward, params, cfg, ctx, batch, remat=False):
     loss = ce + AUX_WEIGHT * aux
     n_tok = (targets != IGNORE).sum().to(torch.float32)
     return loss, {"ce": ce, "aux": aux, "n_tokens": n_tok}
+
+
+def classifier_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean softmax cross-entropy of (B, n_classes) logits against (B,)
+    labels, written as the CNN examples write it
+    (``benchmarks/accuracy_bench.py``)."""
+    onehot = F.one_hot(labels, logits.shape[-1]).to(logits.dtype)
+    return -torch.mean(torch.sum(F.log_softmax(logits, dim=-1) * onehot, -1))

@@ -5,6 +5,8 @@ ported to PyTorch:
     make_train_step(spec, ...)(master, opt_state, batch)
         -> (master, opt_state, metrics)
 
+and the plain step of the CNN examples, ``make_classifier_step``.
+
 The step takes gradients with respect to the compute-dtype copy of the
 fp32 master (the identity at fp32), casts them to fp32, and lets AdamW
 write the new master and moments into the given tensors (``optim/adamw``:
@@ -253,6 +255,25 @@ def make_train_step(
         return master, opt_state, metrics
 
     return train_step
+
+
+def make_classifier_step(forward: Callable, cfg: Any, ctx: QCtx,
+                         opt_cfg: adamw.AdamWConfig):
+    """The CNN examples' step: ``step(params, opt_state, x, y) -> (params,
+    opt_state, loss)``, one AdamW step on ``losses.classifier_loss`` of
+    ``forward(params, cfg, ctx, x)``; params and state updated in place."""
+    def loss_fn(p, batch):
+        return losses.classifier_loss(forward(p, cfg, ctx, batch["x"]),
+                                      batch["y"]), {}
+
+    grad_fn = _value_and_grad(loss_fn)
+
+    def step(params, opt_state, x, y):
+        (loss, _), grads = grad_fn(params, {"x": x, "y": y})
+        params, opt_state, _ = adamw.update(grads, opt_state, params, opt_cfg)
+        return params, opt_state, loss
+
+    return step
 
 
 def init_all(spec: ArchSpec, cfg: Any, gen: torch.Generator):

@@ -961,3 +961,47 @@ def test_trained_smoke_model_packed_equals_fakequant_on_card(cuda, backend):
     assert sorted(streams["packed"]) == list(range(len(prompts)))
     for rid, toks in streams["fake-quant"].items():
         np.testing.assert_array_equal(streams["packed"][rid], toks)
+
+
+@pytest.mark.parametrize("arch", ["lenet-mnist", "resnet18-cifar10"])
+def test_cnn_smoke_packed_equals_fakequant_on_card(cuda, arch):
+    """The paper's CNNs at smoke width on the card (conv GEMMs with K 72,
+    144 and 200, tails that are not a multiple of 32): 1-bit packed ``vpu``
+    (K1 + K2) and ``mxu`` (K1 + K3) logits equal fake-quant bit for bit;
+    w4a4 packed ``vpu-k4`` (K4 + K5) equals ``mxu-k4`` (K4 + K6) bit for
+    bit.  Each packed forward launches its prologue and its GEMM once per
+    binarized layer."""
+    from repro_torch.models import cnn
+
+    spec = registry.get(arch)
+    cfg = spec.smoke
+    init, forward = ((cnn.lenet_init, cnn.lenet_forward)
+                     if arch == "lenet-mnist"
+                     else (cnn.resnet18_init, cnn.resnet18_forward))
+    params = init(torch.Generator(device=cuda).manual_seed(0), cfg)
+    x = torch.randn((16, cfg.in_hw, cfg.in_hw, cfg.in_c),
+                    generator=torch.Generator(device=cuda).manual_seed(1),
+                    device=cuda)
+    for policy, kernels in (
+            (QuantPolicy.binary(), {"vpu": ("pack_sign", "xnor_mismatch"),
+                                    "mxu": ("pack_sign", "xnor_dot_mxu")}),
+            (QuantPolicy.quantized(4),
+             {"vpu": ("quant_pack_planes", "kbit_plane_gemm"),
+              "mxu": ("quant_pack_planes", "kbit_mxu_gemm")})):
+        packed, report = converter.convert(params, policy)
+        out = {}
+        for backend, names in kernels.items():
+            ctx = QCtx(policy=policy, compute_dtype=torch.float32,
+                       gemm_config=dispatch.GemmConfig(backend=backend))
+            _cuda.reset_launches()
+            out[backend] = forward(packed, cfg, ctx, x)
+            torch.cuda.synchronize()
+            assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {
+                k: report.n_packed for k in names}
+        assert torch.equal(out["vpu"], out["mxu"])
+        if policy.w_bits == 1:
+            _cuda.reset_launches()
+            fake = forward(params, cfg, QCtx(policy=policy,
+                                             compute_dtype=torch.float32), x)
+            assert not any(_cuda.LAUNCHES.values())
+            assert torch.equal(out["vpu"], fake)
