@@ -6,8 +6,9 @@ full-width granite-3-2b for a few steps and serves the trained model packed,
 and serves granite-3-2b at full width through the continuous-batching
 scheduler on those kernels: packed 1-bit and packed DoReFa w4a4 on the
 contiguous cache, and packed 1-bit on the paged cache with chunked prefill,
-shared prefixes and the flash-decode kernel at every KV tier; then serves
-the MoE deepseek-moe-16b at full width, packed 1-bit and packed DoReFa
+shared prefixes and the flash-decode kernel at every KV tier, and again
+with speculative decoding behind a w1a1 draft; then serves the MoE
+deepseek-moe-16b at full width, packed 1-bit and packed DoReFa
 w4a4, on the expert-batched kernels; last, the paper's binary LeNet and
 ResNet-18 at full width, their convs through im2col on the same kernels.
 
@@ -27,7 +28,10 @@ Phases (any failure exits non-zero before the result line):
    and (8,4); flash-decode (K11) within 2e-5 on rows that see a key, over
    fp32 / bf16 / int8 / 1-bit pools, paged and contiguous, C 1/4/256, G 1/4,
    Dh 64/128, softcap and window on and off, ragged slots, a -1 table entry
-   and an unmapped slot (exact zeros); the expert-batched xnor-popcount
+   and an unmapped slot (exact zeros), and at the speculative verify's
+   windows (C 2 / 3 / 5, G 4, Dh 64, every tier, both layouts) after a
+   junk window was truncated and the verify window rewritten through the
+   caches' own ``truncate`` / ``fill_window``; the expert-batched xnor-popcount
    (K7) and int8-unpack (K8) GEMMs exactly at E 1/3/64, 1/24/77 bucket
    rows, N 1408/2048/33 and Kw 44/64/1/5; K2/K3 and (at E 2) K7/K8 also
    over K3's tile edges, M 1-576 x N 17-2047 x Kw 1-257 (``TILE_CASES``),
@@ -50,7 +54,8 @@ Phases (any failure exits non-zero before the result line):
    (bf16 ``torch.matmul`` of the ±1 operands for K2/K3, of the dequantized
    DoReFa operands for K5/K6; ``scaled_dot_product_attention`` on the
    gathered dense K/V for K11; none for K1/K4) at the main-path shapes,
-   w4a4 and w8a8 for K4-K6, K11 at decode and a 256-token prefill window
+   w4a4 and w8a8 for K4-K6, K11 at decode, at the verify windows C 3 and
+   5, and a 256-token prefill window
    per pool tier, with the least time the card could take (``bound_ms``:
    for a GEMM, that of its function, the integer dot of the codes, on the
    int8 tensor cores, whichever kernel computes it; K2/K5's popcount
@@ -130,6 +135,18 @@ Phases (any failure exits non-zero before the result line):
      K9 / K10 must launch 3 x MoE layers x (decode steps + prefills) times
      on the ``vpu`` / ``mxu`` runs and never elsewhere, K4 on every packed
      run;
+5b. speculative: the same granite-3-2b with a draft cut from its float
+   params (the first ``SPEC_DRAFT_LAYERS`` layers, packed w1a1):
+   contiguous 1-bit ``vpu`` / ``mxu`` and w4a4 ``mxu`` at spec_len 2 on
+   the granite mix, the paged cell's mix fused at fp and int8 KV at
+   spec_len 4, and the target as its own draft at spec_len 3; every stream
+   must equal the target-only stream of phase 5, the self-draft must
+   accept every proposal in fewer rounds than target-only decode steps,
+   the prologue and GEMM kernels must launch 7 times per packed layer per
+   forward call of target and draft (K11 once per target layer per prefill
+   window and verify position), and the verify window's logits must equal
+   the decode steps' bit for bit at full width; tokens/s, rounds,
+   acceptance and a profile of one round are reported;
 6. cnn: the paper's binary CNNs (``models/cnn.py``, fp32), their convs
    as im2col + the packed GEMMs on K1-K6:
    - smoke LeNet-MNIST and ResNet-18-CIFAR from one seeded init on the CPU
@@ -238,6 +255,11 @@ PREFIX_LEN = 512
 TAIL_LENS = (64, 448)  # unique tail per request, uniform from the seed
 PAGED_REQUESTS = 8
 PAGED_NEW_TOKENS = 32
+# speculative decoding: a w1a1 draft of granite's leading quarter (10 of 40
+# layers); the verify windows K11 is timed at, spec_len + 1 for spec_len 2
+# (C*G 12, the decode tile) and 4 (C*G 20, the window tile)
+SPEC_DRAFT_LAYERS = 10
+SPEC_VERIFY_C = (3, 5)
 # the MoE cell: deepseek-moe-16b's expert GEMMs, (name, N, K) per expert
 TRAIN_BATCH, TRAIN_SEQ = 16, 256  # the full-width train step's tokens
 TRAIN_STEPS = 8
@@ -1060,6 +1082,92 @@ def parity_attn(dev) -> float:
     return worst
 
 
+def parity_attn_verify(dev) -> float:
+    """K11 at the speculative verify's query windows: C 2, 3 and 5 with
+    granite's G 4 and Dh 64 (C*G 8 and 12 in the decode tile, 20 in the
+    window tile), every pool tier, paged and contiguous, ragged slot
+    lengths (so each slot's C query rows carry their own positions), a -1
+    entry mid-table and an unmapped slot.  Each case replays a rejected
+    round through the layout's own cache operations first: a window of
+    junk keys past each slot's length is written, ``truncate`` rolls the
+    slot back to where the verify window starts, and ``fill_window``
+    rewrites the window's C positions with new keys.  Rows that see a key
+    must agree with the plain version within ``ATTN_TOL``; the unmapped
+    slot must be exact zeros.  Returns the max |err|."""
+    from repro_torch.nn import attention
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    g, dh, kvh, bps, junk = 4, 64, 2, 7, 3
+    worst, n, tiles = 0.0, 0, {}
+    for tier in ATTN_TIERS:
+        kv_bits = tier if isinstance(tier, int) else None
+        for layout in ("paged", "contig"):
+            for c in (2, 3, 5):
+                lens = [bps * PAGED_BLOCK - junk,
+                        int(torch.randint(c + 1, bps * PAGED_BLOCK - junk, (1,),
+                                          generator=gen, device=dev)), 0]
+                args, _ = attn_case(dev, gen, tier, layout,
+                                    [x + junk if x else 0 for x in lens], c,
+                                    g, dh, bps, kvh, holes=True)
+                names = (("pool_k", "pool_v", "pool_ks", "pool_vs", "pool_pos",
+                          "table") if layout == "paged" else
+                         ("k", "v", "k_scale", "v_scale", "slot_pos"))
+                keys = (("pool_k", "pool_v", "k_scale", "v_scale", "pool_pos",
+                         "table") if layout == "paged" else
+                        ("k", "v", "k_scale", "v_scale", "slot_pos"))
+                cache = {name: args[key] for name, key in zip(names, keys)
+                         if args[key] is not None}
+                kv = (attention.PagedKVCache(block_size=PAGED_BLOCK,
+                                             kv_bits=kv_bits)
+                      if layout == "paged" else
+                      attention.ContiguousKVCache(kv_bits=kv_bits))
+                lens_t = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+                start = (lens_t - c).clamp(min=0)
+                kv.truncate(cache, start)
+                q_pos = (start[:, None] + torch.arange(
+                    c, dtype=torch.int32, device=dev)).contiguous()
+                k_new = torch.randn((3, c, kvh, dh), generator=gen, device=dev)
+                v_new = torch.randn((3, c, kvh, dh), generator=gen, device=dev)
+                kv.fill_window(cache, k_new, v_new, q_pos,
+                               lens_t > 0)  # the empty slot writes nothing
+                case = {**args, "q_pos": q_pos}
+                for name, key in zip(names, keys):
+                    if name in cache:
+                        case[key] = cache[name]
+                if layout == "paged":
+                    tile = attn_tile(case).split(",")[0]
+                    tiles[tile] = tiles.get(tile, 0) + 1
+                got = attn_call(False, layout, case, tier, sm_scale=dh ** -0.5)
+                want = attn_call(True, layout, case, tier, sm_scale=dh ** -0.5)
+                torch.cuda.synchronize()
+                where = f"K11 verify {tier} {layout} C={c} G={g} Dh={dh}"
+                if layout == "paged":
+                    kpos = torch.where(case["table"][:, :, None] >= 0,
+                                       case["pool_pos"][case["table"].clamp(
+                                           min=0).long()], -1).view(3, -1)
+                else:
+                    kpos = case["slot_pos"]
+                vis = visible(kpos, q_pos, None)
+                if not torch.isfinite(got).all():
+                    raise AssertionError(f"{where}: non-finite")
+                if int(vis.sum()) != c * 2:
+                    raise AssertionError(f"{where}: {int(vis.sum())} rows "
+                                         f"see a key, expected {2 * c}")
+                e = float((got[vis] - want[vis]).abs().max())
+                worst, n = max(worst, e), n + 1
+                if e > ATTN_TOL:
+                    raise AssertionError(f"{where}: max |err| {e} > {ATTN_TOL}")
+                if bool(got[-1].any()):
+                    raise AssertionError(f"{where}: empty slot not zero")
+    print(f"parity: K11 at the verify windows, {n} cases (4 pools x 2 layouts "
+          f"x C 2/3/5, G 4, Dh 64; ragged slots, a junk window truncated and "
+          f"the verify window rewritten through the cache's own truncate / "
+          f"fill_window; paged cases per tile {tiles}) within {ATTN_TOL} of "
+          f"the plain version on rows that see a key, empty slot exact zeros; "
+          f"max |err| {worst:.3e}")
+    return worst
+
+
 def attn_tile(args: dict) -> str:
     """Which K11 tile a paged call takes, and the decode tile's split plan
     (``attn_decode.window_tile`` / ``split_plan``, the C entry point's
@@ -1383,7 +1491,8 @@ def timing_attn(dev) -> list:
                                          PREFIX_LEN + TAIL_LENS[1] + 1, b)]
     sm = dh ** -0.5
     rows = []
-    shapes = [(c, "serving", lens) for c in (1, PAGED_CHUNK)]
+    shapes = [(c, "serving", lens) for c in (1, SPEC_VERIFY_C[0],
+                                              SPEC_VERIFY_C[1], PAGED_CHUNK)]
     shapes.append((1, "full cache", [PAGED_CACHE_LEN] * b))
     for c, cache, lens in shapes:
         for tier in ATTN_TIERS:
@@ -2391,9 +2500,8 @@ def serving(dev) -> tuple[dict, dict]:
         raise AssertionError(f"1-bit path did not run through the kernels: "
                              f"{launches}")
     t0 = time.perf_counter()
-    k11_launches, paged = serving_paged(spec, cfg, packed, dev)
+    k11_launches, paged, paged_runs = serving_paged(spec, cfg, packed, dev)
     print(f"serving: paged cell {time.perf_counter() - t0:.3f}s")
-    del packed
 
     runs4, launches4 = serve_mix(
         spec, cfg, w4a4, (("packed-vpu", packed4, "vpu"),
@@ -2436,7 +2544,332 @@ def serving(dev) -> tuple[dict, dict]:
     summary["w4a4 agreement with fake-quant"] = agreement
     summary["layer0 packed vs fake-quant"] = layer0
     summary["paged cell"] = paged
-    return main_launches, summary
+    # what the speculative phase serves again and holds its streams against
+    state = dict(spec=spec, cfg=cfg, params=params, packed=packed,
+                 packed4=packed4, prompts=prompts, runs=runs, runs4=runs4,
+                 paged_runs=paged_runs,
+                 paged_profiles=paged["decode_profiles"])
+    return main_launches, summary, state
+
+
+SPEC_RUNS = (  # label, target, backend, spec_len, draft, target-only run
+    ("spec-vpu", "binary", "vpu", 2, "w1a1", "packed-vpu"),
+    ("spec-mxu", "binary", "mxu", 2, "w1a1", "packed-mxu"),
+    ("spec-w4a4-mxu", "w4a4", "mxu", 2, "w1a1", "w4a4 packed-mxu"),
+    ("spec-paged-fused", "binary", "vpu", 4, "w1a1", "paged-fused"),
+    ("spec-paged-fused-kv8", "binary", "vpu", 4, "w1a1", "paged-fused-kv8"),
+    ("spec-self", "binary", "vpu", 3, "target", "packed-vpu"),
+)
+# the prologue and GEMM kernels each packed layer launches once per GEMM
+SPEC_KERNELS = {("binary", "vpu"): ("pack_sign", "xnor_mismatch"),
+                ("binary", "mxu"): ("pack_sign", "xnor_dot_mxu"),
+                ("w4a4", "mxu"): ("quant_pack_planes", "kbit_mxu_gemm")}
+
+
+def speculative(dev, served: dict) -> dict:
+    """Phase 5b: speculative decoding on full-width granite-3-2b (40
+    layers).  The draft is the serving phase's float params cut to their
+    leading ``SPEC_DRAFT_LAYERS`` layers and packed to w1a1
+    (``converter.derive_draft``); it runs its own contiguous fp cache, with
+    the target's ``GemmConfig`` (so K1 + K2 under ``vpu``, K1 + K3 under
+    ``mxu``).  Runs (``SPEC_RUNS``): contiguous 1-bit ``vpu`` and ``mxu``
+    at spec_len 2 on the granite mix, w4a4 ``mxu`` (K4 + K6) with the w1a1
+    draft, the paged cell's mix at spec_len 4 fused at fp and int8 KV (K11
+    verifies 5-row windows), and the target as its own draft at spec_len 3.
+    Each run's kernel counts are set to 0 just before it and read just
+    after.  Gates: every stream equals the target-only stream the serving
+    phase produced; the target-as-draft acceptance is exactly 1.0 with
+    fewer verify rounds than target-only decode steps; each packed GEMM
+    kernel and its prologue launch 7 times per packed layer per forward
+    call (target prefills and verify windows, draft prefills, restart
+    windows and steps), K11 once per target layer per prefill window and per
+    verify position on the fused runs (the verify attends position by
+    position at the decode step's shapes, so its rows round as target-only
+    decoding does), and nothing else packed runs; and at full width the
+    verify window's logits equal the decode steps' bit for bit
+    (:func:`window_bits`).  Reports tokens/s, rounds, acceptance, and one
+    round's wall and device time by kernel (a round at the end of a full
+    cache) beside the target-only decode step's."""
+    import dataclasses
+
+    from repro_torch.core import converter
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.dispatch import GemmConfig
+    from repro_torch.launch.serve import stream_agreement
+    from repro_torch.nn.common import QCtx
+    from repro_torch.serve.engine import (DraftModel, Engine, EngineConfig,
+                                          Request, Scheduler)
+
+    spec, cfg = served["spec"], served["cfg"]
+    binary = QuantPolicy.binary()
+    t0 = time.perf_counter()
+    dparams, dcfg, report = converter.derive_draft(
+        served["params"], cfg, n_layers=SPEC_DRAFT_LAYERS, policy=binary)
+    torch.cuda.synchronize()
+    print(f"speculative: draft {dcfg.n_layers} of {cfg.n_layers} layers, "
+          f"w1a1, {report.summary()}, cut and packed in "
+          f"{time.perf_counter() - t0:.3f}s")
+    paged_prompts_ = paged_prompts(cfg.vocab_size)
+    target_only = {**served["runs"],
+                   **{"w4a4 " + k: v for k, v in served["runs4"].items()},
+                   **served["paged_runs"]}
+    paged_cfg = dict(kv_block_size=PAGED_BLOCK, prefill_chunk=PAGED_CHUNK,
+                     shared_prefix=True, fused_attn=True)
+    runs = {}
+    for label, quant, backend, s_len, draft_kind, ref_label in SPEC_RUNS:
+        policy = binary if quant == "binary" else QuantPolicy.quantized(4)
+        params = served["packed"] if quant == "binary" else served["packed4"]
+        ctx = QCtx(policy=policy, compute_dtype=torch.float32,
+                   gemm_config=GemmConfig(backend=backend))
+        if draft_kind == "target":
+            draft = DraftModel(cfg=cfg, params=params, ctx=ctx)
+        else:
+            draft = DraftModel(cfg=dcfg, params=dparams,
+                               ctx=dataclasses.replace(ctx, policy=binary))
+        paged = label.startswith("spec-paged")
+        extra = dict(paged_cfg, kv_bits=8 if label.endswith("kv8") else None,
+                     cache_len=PAGED_CACHE_LEN,
+                     max_new_tokens=PAGED_NEW_TOKENS) if paged else dict(
+            cache_len=CACHE_LEN, max_new_tokens=NEW_TOKENS)
+        prompts = paged_prompts_ if paged else served["prompts"]
+        eng = Engine(spec, cfg, ctx, params, EngineConfig(
+            batch=DECODE_M, draft=draft, spec_len=s_len, **extra))
+        sched = Scheduler(eng)
+        for pr in prompts:
+            sched.submit(Request(prompt=pr))
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t1 = time.perf_counter()
+        results = sched.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        launches = dict(_cuda.LAUNCHES)
+        st = sched.stats
+        n_tok = sum(len(v) for v in results.values())
+        ref = target_only[ref_label]
+        where = f"speculative {label}"
+        if sorted(results) != sorted(ref["results"]) or any(
+                not np.array_equal(results[rid], ref["results"][rid])
+                for rid in ref["results"]):
+            same, total, first = stream_agreement(results, ref["results"])
+            raise AssertionError(
+                f"{where}: streams differ from the target-only {ref_label} "
+                f"streams ({same} of {total} tokens agree, first difference "
+                f"at {first})")
+        # forward calls: the target's prefills (contiguous admission groups
+        # or paged chunk windows) and verify rounds; the draft's prefills
+        # (one per admission group, or per request once its prompt is in
+        # the paged cache), restart windows and single steps
+        t_calls = st.prefills + st.steps
+        d_calls = (len(prompts) if paged else st.prefills) + st.steps * s_len
+        d_layers = dcfg.n_layers if draft_kind == "w1a1" else cfg.n_layers
+        want = {}
+        t_kern = SPEC_KERNELS[(quant, backend)]
+        d_kern = SPEC_KERNELS[("binary", backend)]
+        for name in t_kern:
+            want[name] = want.get(name, 0) + 7 * cfg.n_layers * t_calls
+        for name in d_kern:
+            want[name] = want.get(name, 0) + 7 * d_layers * d_calls
+        if paged:  # the verify attends one position per call
+            want["flash_decode"] = cfg.n_layers * (st.prefills
+                                                   + st.steps * (s_len + 1))
+        got = {k: v for k, v in launches.items() if v}
+        if got != want:
+            raise AssertionError(f"{where}: launches {got}, expected {want} "
+                                 f"(target calls {t_calls}, draft calls "
+                                 f"{d_calls})")
+        if paged and sched.alloc.live_blocks != 0:
+            raise AssertionError(f"{where}: {sched.alloc.live_blocks} blocks "
+                                 "still live after the run")
+        if draft_kind == "target" and not (
+                st.acceptance_rate == 1.0 and st.steps < ref["steps"]):
+            raise AssertionError(
+                f"{where}: acceptance {st.acceptance_rate} (must be 1.0), "
+                f"{st.steps} verify rounds against {ref['steps']} target-only "
+                f"decode steps")
+        runs[label] = dict(
+            seconds=dt, tokens=n_tok, tok_s=n_tok / dt,
+            target_only_tok_s=ref["tok_s"], rounds=st.steps,
+            target_only_steps=ref["steps"], slot_rounds=st.spec_rounds,
+            proposed=st.spec_proposed, accepted=st.spec_accepted,
+            acceptance=st.acceptance_rate, prefills=st.prefills,
+            spec_len=s_len, launches=got)
+        print(f"serving {where}: {n_tok} tokens in {dt:.4f}s = "
+              f"{n_tok / dt:.3f} tok/s (target-only {ref_label} "
+              f"{ref['tok_s']:.3f}); {st.steps} verify rounds (target-only "
+              f"{ref['steps']} decode steps), {st.spec_rounds} slot rounds, "
+              f"acceptance {st.acceptance_rate:.4f} ({st.spec_accepted}/"
+              f"{st.spec_proposed}); streams == target-only; launches {got} "
+              f"(= 7 x ({cfg.n_layers} x {t_calls} target + {d_layers} x {d_calls} draft "
+              f"calls))")
+        if label == "spec-vpu":
+            runs[label]["window_bits"] = window_bits(eng, served["prompts"])
+        if label in ("spec-vpu", "spec-paged-fused"):
+            step = (served["paged_profiles"][ref_label] if paged
+                    else ref["decode_profile"])
+            runs[label]["round_profile"] = profile_spec_round(eng, where)
+            runs[label]["target_only_step_profile"] = step
+            print(f"profile {where}: against the target-only decode step "
+                  f"of the serving phase, wall {step['wall_ms_per_step']:.4f}"
+                  f" ms, device {step['device_ms_per_step']} ms")
+        del eng, sched
+    print("speculative: every stream equals its target-only stream; "
+          "draft == target accepts every proposal")
+    return runs
+
+
+def window_bits(eng, prompts) -> dict:
+    """What exactness needs, at full width: after one prefill of the first
+    ``DECODE_M`` prompts (cut to 16 tokens), ``spec_len + 1`` greedy decode
+    steps give each position's logits; the verify window over the same
+    tokens (``decode_window(logits_all=True)``, one position at a time at
+    the decode step's shapes) must give the same bits at every position
+    (gated).  Reported beside it, on seeded random inputs at the window's
+    shapes (B rows x C positions): how many output elements of each fp32
+    op that the verify runs per position change their bits when the op
+    runs once over all B*C rows: RMSNorm over d_model (layer 0's weight),
+    the tied-logits product and gather attention over the serving cache."""
+    from repro_torch.models import lm
+    from repro_torch.nn import attention
+    from repro_torch.nn.common import norm_apply
+
+    b, c = DECODE_M, eng.ecfg.spec_len + 1
+    dev, cfg = eng.device, eng.cfg
+    tokens = torch.as_tensor(np.stack([p[:16] for p in prompts[:b]]),
+                             dtype=torch.long, device=dev)
+    pos = torch.full((b,), 16, dtype=torch.int32, device=dev)
+
+    def fresh(sub):
+        cache = eng.init_cache()
+        lm.cache_insert(cache, sub, torch.arange(b, device=dev), eng.kv)
+        return cache
+
+    def per_position(fn, *xs):
+        return torch.cat([fn(*(x[:, j:j + 1].contiguous() for x in xs))
+                          for j in range(c)], dim=1)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    acfg = cfg.attn
+    x = torch.randn((b, c, cfg.d_model), generator=gen, device=dev)
+    q = torch.randn((b, c, acfg.n_kv_heads, acfg.groups, acfg.d_head),
+                    generator=gen, device=dev)
+    k, v = (torch.randn((b, CACHE_LEN, acfg.n_kv_heads, acfg.d_head),
+                        generator=gen, device=dev) for _ in range(2))
+    k_pos = torch.arange(CACHE_LEN, dtype=torch.int32, device=dev).expand(
+        b, CACHE_LEN)
+    q_pos = (torch.randint(c, CACHE_LEN - c, (b, 1), generator=gen,
+                           device=dev) + torch.arange(c, device=dev)).to(
+        torch.int32)
+    ops = {
+        "rmsnorm": lambda x_: norm_apply(
+            cfg.norm, eng.params["layers"][0]["pre_norm"], x_),
+        "tied logits": lambda x_: torch.einsum(
+            "bsd,vd->bsv", x_, eng.params["embed"]["table"]),
+        "gather attention": lambda q_, p_: attention._sdpa(
+            acfg, q_, k, v, attention._mask(acfg, p_, k_pos)),
+    }
+    with torch.inference_mode():
+        logits, sub = eng._prefill(tokens)
+        cache = fresh(sub)
+        win, steps = [], []
+        tok = torch.argmax(logits[:, -1], -1)
+        for j in range(c):
+            win.append(tok)
+            step, cache = eng._decode(cache, tok[:, None], pos + j)
+            steps.append(step)
+            tok = torch.argmax(step[:, -1], -1)
+        win = torch.stack(win, 1)
+        steps = torch.cat(steps, 1)
+        verify, _ = eng._verify(fresh(sub), win, pos,
+                                torch.ones((b,), dtype=torch.bool, device=dev))
+        differ = {}
+        for name, fn in ops.items():
+            args = (q, q_pos) if name == "gather attention" else (x,)
+            one, per = fn(*args), per_position(fn, *args)
+            differ[name] = [int((one != per).sum()), one.numel()]
+    out = dict(positions=c, verify_equals_decode=bool(torch.equal(verify,
+                                                                  steps)),
+               verify_max_abs_diff=float((verify - steps).abs().max()),
+               one_pass_elements_that_differ=differ)
+    print(f"speculative window bits ({b} rows x {c} positions after a "
+          f"16-token prefill): verify == decode steps bit for bit "
+          f"{out['verify_equals_decode']} (max |diff| "
+          f"{out['verify_max_abs_diff']:.3e}); run once over all {b * c} rows "
+          f"instead of per position, these ops change the bits of [elements, "
+          f"of] (reported): {differ}")
+    if not out["verify_equals_decode"]:
+        raise AssertionError(f"verify window logits differ from the decode "
+                             f"steps': {out}")
+    return out
+
+
+def profile_spec_round(eng, label: str, rounds: int = 3) -> dict:
+    """Where one speculative round's time goes: the draft's restart window
+    and spec_len - 1 steps, the target's verify window and the rollback of
+    both caches, as ``Scheduler._spec_round`` runs them, for the batch at
+    the end of a full cache (every row attended); wall time of ``rounds``
+    rounds, then their device time by kernel under ``torch.profiler``.  The
+    busy share is device time over unprofiled wall time."""
+    b, s_len = eng.ecfg.batch, eng.ecfg.spec_len
+    dev = eng.device
+    cache = full_cache(eng)
+    dcache = eng.d_init_cache()
+    for lc in dcache["layers"]:
+        lc["slot_pos"].copy_(torch.arange(eng.ecfg.cache_len, device=dev))
+    p0 = eng.ecfg.cache_len - s_len - 2
+    pos = torch.full((b,), p0, dtype=torch.int32, device=dev)
+    dm = torch.ones((b,), dtype=torch.bool, device=dev)
+    tok2 = torch.zeros((b, 2), dtype=torch.long, device=dev)
+
+    def one_round():
+        d_logits, _ = eng._d_window(dcache, tok2, pos - 1, dm)
+        cur = eng._sample(d_logits, None, None, dm)
+        props = [cur]
+        for j in range(1, s_len):
+            d_logits, _ = eng._d_step(dcache, cur.long()[:, None], pos + j, dm)
+            cur = eng._sample(d_logits, None, None, dm)
+            props.append(cur)
+        props = torch.stack(props, 1).long()
+        win = torch.cat([tok2[:, 1:], props], 1)
+        logits, _ = eng._verify(cache, win, pos, dm)
+        picks = torch.cat([props, torch.argmax(logits, -1)], 1).cpu()
+        lengths = pos + 1
+        eng._truncate(cache, lengths)
+        eng._d_truncate(dcache, lengths)
+        return picks
+
+    with torch.inference_mode():
+        for _ in range(2):
+            one_round()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            one_round()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / rounds
+        by_name, _ = device_time_by_kernel(one_round, rounds)
+    us = {k: ms * 1e3 for k, (ms, _) in by_name.items()}
+    device_ms = sum(us.values()) / 1e3
+    groups = {tag: sum(v for k, v in us.items() if sub in k)
+              for tag, sub in (("K1", "pack_sign"), ("K2", "xnor_mismatch"),
+                               ("K3", "xnor_dot_mxu"), ("K11", "flash_decode"))}
+    top = sorted(us.items(), key=lambda kv: -kv[1])[:6]
+    out = {"wall_ms_per_round": wall_ms,
+           "device_ms_per_round": device_ms if us else None,
+           "device_busy_share": device_ms / wall_ms if us else None,
+           "kernel_us_per_round": groups if us else None,
+           "top_kernels_us_per_round": [[k[:90], v] for k, v in top]}
+    if not us:
+        print(f"profile {label} round: wall {wall_ms:.4f} ms/round; device "
+              "time not measured (the profiler recorded no device events)")
+    else:
+        print(f"profile {label} round (spec_len {s_len}, batch {b} at "
+              f"position {p0}): wall {wall_ms:.4f} ms/round, device "
+              f"{device_ms:.4f} ms/round, busy share {device_ms / wall_ms:.4f}; "
+              + ", ".join(f"{k} {v:.1f}us" for k, v in groups.items())
+              + "; top: " + "; ".join(f"{k[:60]} {v:.1f}us" for k, v in top))
+    return out
 
 
 def recording_ctx(policy, backend: str, keep, inputs: dict):
@@ -2572,7 +3005,7 @@ def serving_paged(spec, cfg, packed, dev) -> tuple[int, dict]:
     Then layer 0's fused attention is held against the gather oracle at
     every pool tier (:func:`layer0_attention`).  Stream agreements between
     runs are reported, not gated.  Returns (K11 launches on the
-    ``paged-fused`` run, summary)."""
+    ``paged-fused`` run, summary, the runs by label with their streams)."""
     from repro_torch.core.policy import QuantPolicy
     from repro_torch.kernels import _cuda
     from repro_torch.kernels.dispatch import GemmConfig
@@ -2659,7 +3092,7 @@ def serving_paged(spec, cfg, packed, dev) -> tuple[int, dict]:
                for label, r in runs.items()}
     summary.update(agreement=agreement, layer0_fused_vs_oracle=oracle,
                    decode_profiles=profiles, prompt_lens=[len(p) for p in prompts])
-    return runs["paged-fused"]["launches"]["flash_decode"], summary
+    return runs["paged-fused"]["launches"]["flash_decode"], summary, runs
 
 
 def layer0_attention(eng, prompts) -> dict:
@@ -3250,7 +3683,7 @@ def main() -> int:
     t0 = time.perf_counter()
     err = parity(dev)
     err.update(parity_kbit(dev))
-    err["flash_decode"] = parity_attn(dev)
+    err["flash_decode"] = max(parity_attn(dev), parity_attn_verify(dev))
     err.update(parity_moe(dev))
     for name, e in parity_xnor(dev).items():
         err[name] = max(err[name], e)
@@ -3289,8 +3722,12 @@ def main() -> int:
     train_summary = training(dev)
     print(f"training phase {time.perf_counter() - t0:.3f}s")
     t0 = time.perf_counter()
-    launches, serve_summary = serving(dev)
+    launches, serve_summary, served = serving(dev)
     print(f"serving phase {time.perf_counter() - t0:.3f}s")
+    t0 = time.perf_counter()
+    serve_summary["speculative"] = speculative(dev, served)
+    del served
+    print(f"speculative phase {time.perf_counter() - t0:.3f}s")
     t0 = time.perf_counter()
     moe_launches, moe_summary = serving_moe(dev)
     launches.update(moe_launches)

@@ -16,7 +16,8 @@ alpha, over every axis but ``c_out`` for a conv) rides along.  Everything
 else (embedding, first conv, norms, biases, head) is left untouched.
 ``convert`` returns the new tree and a :class:`SizeReport` with the paper's
 accounting (k/32 of the fp32 bytes at k bits); :func:`model_nbytes` sizes
-a whole checkpoint.
+a whole checkpoint; :func:`derive_draft` cuts and packs a speculative draft
+from a target LM.
 
 MoE expert stacks (a dict of ``up`` / ``gate`` / ``down`` tensors of shape
 ``(E, d_in, d_out)``) pack per expert along ``d_in`` into ``{name}_packed``
@@ -184,6 +185,28 @@ def _pack_layer(node, path, spec: QuantSpec, report: SizeReport,
         _fp32_bytes(w) + (_fp32_bytes(node["b"]) if "b" in node else 0),
         after, True))
     return out
+
+
+def derive_draft(params: Pytree, cfg, *, n_layers: int | None = None,
+                 policy: QuantPolicy | None = None,
+                 keep_float: bool = False) -> tuple[Pytree, Any, SizeReport]:
+    """A speculative draft from a target LM checkpoint: the leading
+    ``n_layers`` blocks (default a quarter of the stack, at least one),
+    packed under ``policy`` (default ``QuantPolicy.binary()``, the paper's
+    w1a1 xnor tier).  The draft keeps the target's embedding, final norm
+    and head, so it is the target's early exit through the packed GEMMs.
+    Greedy speculative output equals the target's whatever the draft; the
+    draft only sets the acceptance rate.  ``cfg`` is any config with an
+    ``n_layers`` field.  Returns ``(draft_params, draft_cfg, report)``."""
+    policy = QuantPolicy.binary() if policy is None else policy
+    total = len(params["layers"])
+    n = max(1, total // 4) if n_layers is None else n_layers
+    if not 1 <= n <= total:
+        raise ValueError(f"draft n_layers {n} not in [1, {total}]")
+    sliced = {k: v for k, v in params.items() if k != "layers"}
+    sliced["layers"] = list(params["layers"][:n])
+    draft_params, report = convert(sliced, policy, keep_float=keep_float)
+    return draft_params, dataclasses.replace(cfg, n_layers=n), report
 
 
 def model_nbytes(params: Pytree) -> int:

@@ -323,6 +323,11 @@ def get_backend(name: str) -> Backend:
                          f"{sorted(_REGISTRY)}") from None
 
 
+def backend_names() -> list[str]:
+    """The registered backend names, sorted (the launchers' choices)."""
+    return sorted(_REGISTRY)
+
+
 register_backend(Backend("vpu", _vpu_gemm, gemm_grouped=_vpu_gemm_grouped))
 register_backend(Backend("mxu", _mxu_gemm, gemm_grouped=_mxu_gemm_grouped))
 register_backend(Backend("xla", _xla_gemm, from_float=_xla_from_float,

@@ -35,7 +35,23 @@ token "system prompt", and the stats line reports the prefill tokens saved).
 flash-decode kernel (``csrc/flash_decode.cu``), which reads the KV storage in
 place through the block tables instead of gathering it every step, and
 ``--kv-bits {8,1}`` stores the KV cache itself quantized (int8 absmax /
-1-bit sign + alpha).
+1-bit sign + alpha).  The backend, prologue and attention flags come from
+``launch/cli.py``.
+
+``--request-stream`` submits 2 x ``--prompts`` requests of mixed prompt
+lengths, so slots recycle as requests finish, and prints the served / TTFT
+line, the paged line and the p50 / p95 per-token latency; ``--eos-id``
+retires a slot the step it emits that token, and ``--temperature`` samples
+(0, the default, is greedy).
+
+``--draft w1a1 --spec-len s`` turns on speculative decoding: the leading
+``--draft-layers`` layers (default a quarter) of the seeded float model,
+packed to 1 bit (``converter.derive_draft``; ``--draft fp`` keeps them
+float), propose ``s`` tokens a round and the target verifies them in one
+window (``serve/engine.py``).  Greedy streams stay those of non-speculative
+serving, and a ``speculative:`` line reports the acceptance.  With
+``--packed`` the draft still comes from the seeded init, as in the JAX
+launcher; the float model is freed once the draft is cut.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
@@ -53,6 +69,8 @@ Example:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
       --quant binary --backend vpu --kv-block-size 16 --prefill-chunk 256 \\
       --shared-prefix --fused-attn --kv-bits 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
+      --smoke --device cpu --draft w1a1 --spec-len 2 --request-stream
 """
 
 from __future__ import annotations
@@ -69,12 +87,13 @@ from repro_torch import resolve_device
 from repro_torch.ckpt.manager import _unflatten_into
 from repro_torch.core import converter
 from repro_torch.core.policy import QuantPolicy
-from repro_torch.kernels.dispatch import GemmConfig
+from repro_torch.interop import params_from_numpy
+from repro_torch.launch import cli
 from repro_torch.models import lm as lm_model
 from repro_torch.models import registry
 from repro_torch.nn.common import QCtx
-from repro_torch.interop import params_from_numpy
-from repro_torch.serve.engine import Engine, EngineConfig, Request, Scheduler
+from repro_torch.serve.engine import (DraftModel, Engine, EngineConfig,
+                                      Request, Scheduler)
 from repro_torch.tree import tree_map
 
 
@@ -155,9 +174,7 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--quant", default="binary",
                     help="binary | binary_scaled | wXaY (DoReFa, e.g. w4a4)")
-    ap.add_argument("--backend", choices=("vpu", "mxu", "xla"), default="vpu",
-                    help="base GEMM backend; k-bit layers resolve it onto "
-                         "the vpu-k*/mxu-k* plane kernels")
+    cli.add_gemm_flags(ap, "--backend", "--xnor-backend")
     ap.add_argument("--packed", default=None, metavar="PATH",
                     help="serve this packed checkpoint (from train.py "
                          "--export-packed) instead of a seeded model")
@@ -169,7 +186,13 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--cache-len", type=int, default=128)
     ap.add_argument("--seed", type=int, default=0,
-                    help="seeds the params (torch.Generator) and prompts")
+                    help="seeds the params (torch.Generator), the prompts "
+                         "and the sampling streams")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0 = greedy)")
+    ap.add_argument("--eos-id", type=int, default=None,
+                    help="stop token: the scheduler retires (and recycles) "
+                         "a slot the step it emits this id")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--kv-block-size", type=int, default=None,
                     help="switch the KV cache to the block-table paged "
@@ -185,15 +208,12 @@ def main(argv: list[str] | None = None) -> dict:
                          "across identical-prefix requests (every prompt "
                          "gets a common prefix so the savings show up in "
                          "the stats line)")
-    ap.add_argument("--fused-attn", action="store_true",
-                    help="route decode/window attention through the fused "
-                         "flash-decode kernel (no dense KV gather); off = "
-                         "the gather + masked-sdpa oracle path")
-    ap.add_argument("--kv-bits", type=int, default=None, choices=[8, 1],
-                    help="KV-cache storage tier: 8 = int8 codes + per-"
-                         "(head, dh-group) absmax scales, 1 = sign bytes + "
-                         "per-head alpha (the XNOR tier); default fp "
-                         "compute dtype")
+    cli.add_attn_flags(ap)
+    cli.add_spec_flags(ap)
+    ap.add_argument("--request-stream", action="store_true",
+                    help="submit 2x --prompts requests of mixed prompt "
+                         "lengths (slots recycle as requests finish) and "
+                         "print TTFT and per-token latency")
     ap.add_argument("--check-fakequant", action="store_true",
                     help="also serve the fake-quant float model: assert "
                          "identical greedy tokens at 1 bit (paper §2.2.2), "
@@ -207,28 +227,44 @@ def main(argv: list[str] | None = None) -> dict:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     policy = parse_quant(args.quant)
     ctx = QCtx(policy=policy, compute_dtype=torch.float32,
-               gemm_config=GemmConfig(backend=args.backend))
+               gemm_config=cli.gemm_config_from_args(args))
 
+    if args.packed and args.check_fakequant:
+        raise SystemExit("--check-fakequant needs the float model; a "
+                         "--packed checkpoint holds packed words only")
+    params = None
+    if not args.packed or args.draft:
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        params = lm_model.init(gen, cfg)
     if args.packed:
-        if args.check_fakequant:
-            raise SystemExit("--check-fakequant needs the float model; a "
-                             "--packed checkpoint holds packed words only")
         packed = load_packed(args.packed, packed_template(cfg, policy), dev)
         print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
               f"device {dev}, quant {args.quant}; loaded packed checkpoint "
               f"{args.packed}")
     else:
-        gen = torch.Generator(device=dev).manual_seed(args.seed)
-        params = lm_model.init(gen, cfg)
         packed, report = converter.convert(params, policy)
         print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
               f"device {dev}, quant {args.quant}; packed {report.summary()}")
-        if not args.check_fakequant:
-            del params
+    draft = None
+    if args.draft:
+        # cut from the float model: a packed target cannot be re-sliced
+        dpolicy = parse_quant("binary" if args.draft == "w1a1" else "fp")
+        dparams, dcfg, _ = converter.derive_draft(
+            params, cfg, n_layers=args.draft_layers, policy=dpolicy,
+            keep_float=args.draft == "fp")
+        draft = DraftModel(cfg=dcfg, params=dparams,
+                           ctx=dataclasses.replace(ctx, policy=dpolicy))
+        print(f"speculative draft: {dcfg.n_layers}/{cfg.n_layers} layers "
+              f"({args.draft}), spec_len={args.spec_len}")
+    if not args.check_fakequant:
+        params = None  # the float model is no longer needed
 
     rng = np.random.default_rng(args.seed)
-    prompts = [rng.integers(0, cfg.vocab_size, (args.prompt_len,)).astype(np.int32)
-               for _ in range(args.prompts)]
+    n_req = 2 * args.prompts if args.request_stream else args.prompts
+    lens = [max(2, args.prompt_len - 2 * (i % 4)) if args.request_stream
+            else args.prompt_len for i in range(n_req)]
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in lens]
     if args.shared_prefix:
         # every request opens with the same "system prompt", so later
         # admissions reuse its already-prefilled blocks
@@ -236,11 +272,13 @@ def main(argv: list[str] | None = None) -> dict:
                               (args.prompt_len,)).astype(np.int32)
         prompts = [np.concatenate([shared, p]) for p in prompts]
     ecfg = EngineConfig(batch=args.prompts, cache_len=args.cache_len,
-                        max_new_tokens=args.new_tokens, seed=args.seed,
-                        kv_block_size=args.kv_block_size,
+                        max_new_tokens=args.new_tokens,
+                        temperature=args.temperature, eos_id=args.eos_id,
+                        seed=args.seed, kv_block_size=args.kv_block_size,
                         prefill_chunk=args.prefill_chunk,
                         shared_prefix=args.shared_prefix,
-                        fused_attn=args.fused_attn, kv_bits=args.kv_bits)
+                        fused_attn=args.fused_attn, kv_bits=args.kv_bits,
+                        draft=draft, spec_len=args.spec_len)
     eng = Engine(spec, cfg, ctx, packed, ecfg)
     tier = {None: "fp", 8: "int8", 1: "1-bit"}[args.kv_bits]
     print(f"KV cache: {'paged' if eng.paged else 'contiguous'}, {tier} "
@@ -248,17 +286,35 @@ def main(argv: list[str] | None = None) -> dict:
           f"{'fused flash-decode kernel' if args.fused_attn else 'gather'}")
     results, dt, stats = serve(eng, prompts)
     n_tok = sum(len(v) for v in results.values())
-    print(f"packed ({args.backend}): {n_tok} tokens in {dt:.3f}s "
-          f"({n_tok / dt:.1f} tok/s), {stats.steps} decode steps, "
-          f"{stats.prefills} prefills")
+    if args.request_stream:
+        ttft = np.mean(stats.ttfts()) * 1e3
+        print(f"served {len(results)} requests (prompt lens {min(lens)}-"
+              f"{max(lens)}) on {args.prompts} slots in {dt:.3f}s: {n_tok} "
+              f"tokens ({n_tok / dt:.1f} tok/s), {stats.steps} decode steps, "
+              f"{stats.prefills} prefills, mean TTFT {ttft:.1f}ms")
+    else:
+        print(f"packed ({args.gemm_backend}): {n_tok} tokens in {dt:.3f}s "
+              f"({n_tok / dt:.1f} tok/s), {stats.steps} decode steps, "
+              f"{stats.prefills} prefills")
     if eng.paged:
         print(f"paged KV: {stats.prefill_tokens} prompt tokens prefilled, "
               f"{stats.shared_tokens} reused from shared prefix blocks")
+    if eng.speculative:
+        print(f"speculative: {stats.spec_rounds} rounds, acceptance "
+              f"{stats.acceptance_rate:.2f} ({stats.spec_accepted}/"
+              f"{stats.spec_proposed} proposals accepted)")
+    if args.request_stream and stats.tpots():
+        p50, p95 = np.percentile(stats.tpots(), [50, 95]) * 1e3
+        print(f"per-token latency: p50 {p50:.1f}ms, p95 {p95:.1f}ms")
     for rid in sorted(results)[:4]:
-        print(f"  rid={rid}: {results[rid][:12]}")
+        print(f"  rid={rid} ({len(results[rid])} tok): {results[rid][:12]}")
 
     if args.check_fakequant:
-        ref, dt_f, _ = serve(Engine(spec, cfg, ctx, params, ecfg), prompts)
+        # the float model without a draft: speculative streams are held
+        # against target-only ones too
+        ref, dt_f, _ = serve(Engine(spec, cfg, ctx, params,
+                                    dataclasses.replace(ecfg, draft=None)),
+                             prompts)
         agree, total, first = stream_agreement(results, ref)
         print(f"fake-quant: {total} tokens in {dt_f:.3f}s; packed == "
               f"fake-quant: {first is None} ({agree} of {total} tokens "

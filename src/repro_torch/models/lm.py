@@ -209,6 +209,24 @@ def cache_reset(cfg: LMConfig, cache: Params, slot: int,
     return cache
 
 
+def cache_truncate(cfg: LMConfig, cache: Params, lengths: torch.Tensor,
+                   kv: attn_lib.KVCache | None = None) -> Params:
+    """Per-row KV rollback for speculative decoding (in place): row b keeps
+    its first ``lengths[b]`` positions, and every position ``>= lengths[b]``
+    becomes invisible again (``kv.truncate`` per attention layer).  Rows
+    whose cache is already shorter are untouched, so one batch-wide call
+    covers ragged accept lengths.  Pure-attention stacks only: recurrent
+    state has no per-position rollback (the port's stacks are all
+    attention; a layer cache without positions raises)."""
+    kv = attn_lib.CONTIGUOUS if kv is None else kv
+    for i, lc in enumerate(cache["layers"]):
+        if "slot_pos" not in lc and "pool_pos" not in lc:
+            raise ValueError(f"cache_truncate supports pure-attention stacks; "
+                             f"layer {i} holds no KV positions")
+        kv.truncate(lc, lengths)
+    return cache
+
+
 def decode_step(params: Params, cfg: LMConfig, ctx: QCtx, cache: Params,
                 tokens: torch.Tensor, pos: torch.Tensor,
                 kv: attn_lib.KVCache | None = None,
@@ -233,31 +251,54 @@ def decode_step(params: Params, cfg: LMConfig, ctx: QCtx, cache: Params,
 def decode_window(params: Params, cfg: LMConfig, ctx: QCtx, cache: Params,
                   tokens: torch.Tensor, pos_start: torch.Tensor,
                   kv: attn_lib.KVCache,
-                  write_mask: torch.Tensor | None = None):
+                  write_mask: torch.Tensor | None = None,
+                  logits_all: bool = False):
     """A C-token window for every batch row against the cache: the serving
-    primitive behind chunked prefill (decode is its C == 1 case).  Row b's
-    tokens (B, C) sit at positions ``pos_start[b] + [0..C)``; their k/v are
-    stored through ``kv.fill_window`` and attention runs over the whole
-    cache, so a chunk attends to everything already cached for its slot
-    (earlier chunks, shared-prefix blocks) plus itself.  Rows with
-    ``write_mask=False`` compute junk and write nothing.  Returns the
-    LAST-position logits (B, 1, V) — the only ones admission samples from —
-    and the cache, updated in place.  (All positions' logits are the
-    speculative verify's, ROADMAP A11.)"""
+    primitive behind chunked prefill, decode (its C == 1 case) and the
+    speculative verify.  Row b's tokens (B, C) sit at positions
+    ``pos_start[b] + [0..C)``; their k/v are stored through
+    ``kv.fill_window`` and attention runs over the whole cache, so a chunk
+    attends to everything already cached for its slot (earlier chunks,
+    shared-prefix blocks) plus itself.  Rows with ``write_mask=False``
+    compute junk and write nothing.  Returns the LAST-position logits
+    (B, 1, V) — the only ones admission samples from — and the cache,
+    updated in place.
+
+    ``logits_all=True`` is the speculative window: it returns every
+    position's logits (B, C, V), with which the target scores all its
+    proposals in one call (row c conditions on window tokens <= c through
+    the causal mask: the sequential decode distribution at each position).
+    Its fp32 reductions (the norms, attention, the logits product) then run
+    one position at a time at a decode step's shapes, so each row gives the
+    decode step's bits: on the card those reductions' order depends on the
+    number of rows, and in a binarized stack one flipped sign changes the
+    stream.  The packed GEMMs, exact integers at any M, still run once over
+    all B*C rows."""
     c = tokens.shape[1]
     x = _embed(params, cfg, ctx, tokens)
     positions = (pos_start.to(torch.int32)[:, None]
                  + torch.arange(c, dtype=torch.int32, device=tokens.device))
+
+    def per_position(fn, x):
+        if not logits_all:
+            return fn(x)
+        return torch.cat([fn(x[:, j:j + 1].contiguous()) for j in range(c)],
+                         dim=1)
+
     for i, blk in enumerate(params["layers"]):
         path = f"layers/{i}"
-        h = norm_apply(cfg.norm, blk["pre_norm"], x)
+        h = per_position(lambda r: norm_apply(cfg.norm, blk["pre_norm"], r), x)
         h, _ = attn_lib.attn_window(blk["attn"], h, positions,
                                     cache["layers"][i], cfg.attn, ctx,
-                                    f"{path}/attn", kv, write_mask=write_mask)
+                                    f"{path}/attn", kv, write_mask=write_mask,
+                                    per_position=logits_all)
         x = x + h
-        h = norm_apply(cfg.norm, blk["pre_ffn_norm"], x)
+        h = per_position(lambda r: norm_apply(cfg.norm, blk["pre_ffn_norm"], r),
+                         x)
         x = x + _ffn_forward(blk, i, h, cfg, ctx, path)[0]
-    return _logits(params, cfg, ctx, x[:, -1:, :]), cache
+    if not logits_all:
+        x = x[:, -1:, :]
+    return per_position(lambda r: _logits(params, cfg, ctx, r), x), cache
 
 
 def prefill(params: Params, cfg: LMConfig, ctx: QCtx, tokens: torch.Tensor,

@@ -10,9 +10,13 @@ flash-decode kernel (``fused_attn``, ``kernels/attn_decode.py``).
 All projections run through ``QCtx.dense`` => they obey the BMXNet
 quantization policy like every other GEMM.
 
+The speculative-decoding cache operations are here too: ``fill_window`` at
+per-row window starts on both layouts (the verify window and the draft's
+restart window) and ``truncate``, the per-row rollback that flips positions
+past a row's accepted length back to empty.
+
 Not in the port yet: ``_sdpa_chunked`` for prefill longer than
-``full_attn_max_seq``, and the speculative-decoding cache operations
-(``truncate``, the contiguous ``fill_window``; ROADMAP A11).
+``full_attn_max_seq``.
 """
 
 from __future__ import annotations
@@ -144,10 +148,6 @@ def _full_sdpa(cfg: AttnConfig, qg, k, v, q_pos, k_pos):
 # KV cache (decode) — one KVCache API, two layouts
 # --------------------------------------------------------------------------
 
-_A11 = ("belongs to speculative decoding (ROADMAP A11), which the port does "
-        "not have yet")
-
-
 @dataclasses.dataclass(frozen=True)
 class KVCache:
     """Layout handle for attention KV caches.
@@ -167,7 +167,9 @@ class KVCache:
     * ``fill(cache, k, v, positions, write_mask=None)`` -> store projected
       k/v at absolute positions
     * ``fill_window(...)`` -> the same at arbitrary per-row window starts
-      (chunked prefill)
+      (chunked prefill, the speculative verify and draft windows)
+    * ``truncate(cache, lengths)`` -> per-row rollback: positions
+      ``>= lengths[b]`` of row b become empty again
     * ``gather(cache)`` -> dense ``(k, v, pos)`` views ``(B, L, KVH, Dh) x2
       + (B, L)`` that ``_sdpa`` consumes (dequantized)
     * ``attend(cache, q, q_pos, cfg)`` -> the fused flash-decode kernel on
@@ -176,18 +178,14 @@ class KVCache:
 
     Quantized tiers (``kv_bits``) store codes in the K/V leaves and scales
     in leaves beside them, written by the same index writes, so a block and
-    its scales never go out of sync; visibility (``reset``) only touches
-    the position plane."""
+    its scales never go out of sync; visibility (``reset``, ``truncate``)
+    only touches the position plane."""
 
     def fill_window(self, cache: Params, k, v, positions,
                     write_mask: torch.Tensor | None = None) -> Params:
         """Window write at arbitrary per-row start positions.  The paged
-        scatter handles that natively; the contiguous layout's would be the
-        speculative verify's one-hot write."""
+        scatter handles that natively."""
         return self.fill(cache, k, v, positions, write_mask)
-
-    def truncate(self, cache: Params, lengths: torch.Tensor) -> Params:
-        raise NotImplementedError(f"KVCache.truncate {_A11}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -247,23 +245,17 @@ class ContiguousKVCache(KVCache):
              write_mask: torch.Tensor | None = None) -> Params:
         """Store projected k/v (B, S, KVH, Dh) at absolute ``positions``
         (B, S).  Slots are ``pos % cache_len`` (a ring for local layers).
-        S == 1 (decode, per-row positions) is an index write that skips
-        ``write_mask=False`` rows; S > 1 (prefill) assumes the standard
-        arange positions: a slice write, or the last cache_len tokens rolled
-        into place when S > cache_len.  The prefill paths ignore
+        S == 1 (decode, per-row positions) is :meth:`fill_window`'s index
+        write, which skips ``write_mask=False`` rows; S > 1 (prefill)
+        assumes the standard arange positions: a slice write, or the last
+        cache_len tokens rolled into place when S > cache_len.  The prefill paths ignore
         ``write_mask``: storage is slot-private and admission's full-slot
         ``insert`` overwrites any junk."""
         cache_len = cache["slot_pos"].shape[1]
         s = k.shape[1]
-        new = {**self._encode(k, v), "slot_pos": positions}
         if s == 1:
-            rows = torch.arange(k.shape[0], device=k.device)
-            slots = positions[:, 0].long() % cache_len
-            if write_mask is not None:
-                rows, slots = rows[write_mask], slots[write_mask]
-            for name, val in new.items():
-                cache[name][rows, slots] = val[rows, 0].to(cache[name].dtype)
-            return cache
+            return self.fill_window(cache, k, v, positions, write_mask)
+        new = {**self._encode(k, v), "slot_pos": positions}
         if s <= cache_len:
             for name, val in new.items():
                 cache[name][:, :s] = val.to(cache[name].dtype)
@@ -274,12 +266,39 @@ class ContiguousKVCache(KVCache):
             cache[name].copy_(torch.roll(val[:, s - cache_len:], shift, dims=1))
         return cache
 
-    def fill_window(self, cache, k, v, positions, write_mask=None):
-        if k.shape[1] == 1:
-            return self.fill(cache, k, v, positions, write_mask)
-        raise NotImplementedError(
-            f"the contiguous layout's window write {_A11}; chunked prefill "
-            "runs on the paged layout")
+    def fill_window(self, cache: Params, k, v, positions,
+                    write_mask: torch.Tensor | None = None) -> Params:
+        """A C-token window at per-row starts (speculative verify, the
+        draft's restart window; C == 1 is a decode step): window token c of
+        row b lands in slot ``positions[b, c] % cache_len``, every leaf
+        (codes, scales, ``slot_pos``) by one index write.  The JAX package
+        writes through a one-hot einsum, which selects exactly one addend
+        per slot: the same bits, save that its +0 addends can turn a stored
+        -0.0 into +0.0 (ROADMAP C).  Rows with ``write_mask=False`` write
+        their slots' current values back, so they stay untouched without a
+        boolean index (which would read the mask on the host).  A row's
+        window positions are consecutive and at most ``cache_len`` long, so
+        no two writes hit one slot."""
+        b, c = positions.shape
+        cache_len = cache["slot_pos"].shape[1]
+        rows = torch.arange(b, device=k.device)[:, None].expand(b, c)
+        slots = positions.long() % cache_len
+        for name, val in {**self._encode(k, v), "slot_pos": positions}.items():
+            leaf = cache[name]
+            val = val.to(leaf.dtype)
+            if write_mask is not None:
+                keep = write_mask.view((b, 1) + (1,) * (val.ndim - 2))
+                val = torch.where(keep, val, leaf[rows, slots])
+            leaf[rows, slots] = val
+        return cache
+
+    def truncate(self, cache: Params, lengths: torch.Tensor) -> Params:
+        """Rows at positions ``>= lengths[b]`` flip to ``slot_pos = -1``:
+        invisible to :func:`_mask` and rewritten in place by the next window
+        before it is read.  K/V bytes stay, as in :meth:`reset`."""
+        sp = cache["slot_pos"]
+        sp.masked_fill_(sp >= lengths.to(sp.dtype)[:, None], -1)
+        return cache
 
     def gather(self, cache: Params):
         if self.kv_bits is None:
@@ -422,6 +441,31 @@ class PagedKVCache(KVCache):
         flat = self._flat(cache, positions, write_mask).reshape(-1)
         return self._scatter(cache, flat, self._encode(k, v), positions)
 
+    def truncate(self, cache: Params, lengths: torch.Tensor) -> Params:
+        """Rollback through the table: every pool row mapped by slot b that
+        holds a position ``>= lengths[b]`` flips to ``pool_pos = -1``,
+        invisible to :func:`_mask` until the next window rewrites it.
+        Unmapped (-1) entries are dropped; block ownership is the host
+        allocator's and stays as it is.  A block takes the least length of
+        the slots that map it, so a shared-prefix block, whose positions lie
+        below every holder's length (rows that must not roll back carry a
+        length past every position), keeps its bytes.  The JAX package
+        scatters each holder's row back instead; where the holders agree,
+        as the allocator guarantees, the two are the same."""
+        table = cache["table"]
+        b, bps = table.shape
+        nb = cache["pool_pos"].shape[0]
+        pos = cache["pool_pos"]
+        # per block the least length of its holders; unmapped entries land
+        # on the extra entry nb, which is then dropped
+        idx = torch.where(table >= 0, table, nb).long().view(-1)
+        lim = torch.full((nb + 1,), torch.iinfo(pos.dtype).max,
+                         dtype=pos.dtype, device=pos.device)
+        lim.scatter_reduce_(0, idx, lengths.to(pos.dtype)[:, None]
+                            .expand(b, bps).reshape(-1), "amin")
+        pos.masked_fill_(pos >= lim[:nb, None], -1)
+        return cache
+
     def gather(self, cache: Params):
         """Dense (B, L, KVH, Dh) views via the table, in position order.
         Unmapped entries read block 0 but report pos -1, which
@@ -455,17 +499,31 @@ CONTIGUOUS = ContiguousKVCache()
 
 
 def _attend(params, q, positions, cache, cfg: AttnConfig, ctx: QCtx, path,
-            kv: KVCache):
+            kv: KVCache, per_position: bool = False):
     """Attention of the projected (B, C, H, Dh) queries over the cache they
-    were just written into, then the output projection."""
+    were just written into, then the output projection.  ``per_position``
+    attends one window position at a time, each call at a decode step's
+    shapes, so that every row rounds as the decode step of that position
+    would (the fp32 reductions and K11's split plan depend on the number of
+    query rows); the output projection still runs once over all rows."""
     b, c = positions.shape
-    qg = q.reshape(b, c, cfg.n_kv_heads, cfg.groups, cfg.d_head)
-    if cfg.fused_attn:
-        out = kv.attend(cache, qg, positions, cfg)
+    kvh, g, dh = cfg.n_kv_heads, cfg.groups, cfg.d_head
+    gathered = None if cfg.fused_attn else kv.gather(cache)
+
+    def attend(qc, pc):
+        qg = qc.reshape(b, pc.shape[1], kvh, g, dh)
+        if cfg.fused_attn:
+            return kv.attend(cache, qg, pc, cfg)
+        k, v, k_pos = gathered
+        return _sdpa(cfg, qg, k, v, _mask(cfg, pc, k_pos))
+
+    if per_position:
+        out = torch.cat([attend(q[:, j:j + 1].contiguous(),
+                                positions[:, j:j + 1].contiguous())
+                         for j in range(c)], dim=1)
     else:
-        k, v, k_pos = kv.gather(cache)
-        out = _sdpa(cfg, qg, k, v, _mask(cfg, positions, k_pos))
-    out = out.reshape(b, c, cfg.n_heads * cfg.d_head).to(ctx.compute_dtype)
+        out = attend(q, positions)
+    out = out.reshape(b, c, cfg.n_heads * dh).to(ctx.compute_dtype)
     return ctx.dense(params["o"], out, f"{path}/o")
 
 
@@ -487,13 +545,16 @@ def attn_decode(params: Params, x: torch.Tensor, pos: torch.Tensor,
 
 def attn_window(params: Params, x: torch.Tensor, positions: torch.Tensor,
                 cache: Params, cfg: AttnConfig, ctx: QCtx, path: str,
-                kv: KVCache, *, write_mask: torch.Tensor | None = None):
+                kv: KVCache, *, write_mask: torch.Tensor | None = None,
+                per_position: bool = False):
     """A C-token window against the cache: project, store the window's k/v,
     then attend over the whole cache (the window included — causality comes
     from the position mask).  ``attn_decode`` is the C == 1 case; chunked
     prefill is the general one, where each chunk of a long prompt attends to
     everything already cached (earlier chunks, shared prefix blocks) plus
-    itself.  x: (B, C, D); positions: (B, C) absolute positions."""
+    itself.  x: (B, C, D); positions: (B, C) absolute positions.
+    ``per_position``: see :func:`_attend` (the speculative windows)."""
     q, k_new, v_new = _project_qkv(params, x, positions, cfg, ctx, path)
     cache = kv.fill_window(cache, k_new, v_new, positions, write_mask)
-    return _attend(params, q, positions, cache, cfg, ctx, path, kv), cache
+    return _attend(params, q, positions, cache, cfg, ctx, path, kv,
+                   per_position), cache

@@ -66,7 +66,50 @@ temperature > 0 draws from a ``torch.Generator`` seeded per request from
 does not depend on its batchmates; it cannot reproduce the JAX package's
 threefry streams.
 
-Speculative decoding and the whisper family are not in the port yet.
+**Speculative decoding** (``EngineConfig.draft`` + ``spec_len``): a second,
+cheap model — the target's leading layers packed to the w1a1 xnor tier
+(``core/converter.derive_draft``) — proposes ``spec_len`` greedy tokens per
+round for every decoding slot, and the target scores all of them in ONE
+``models/lm.decode_window(..., logits_all=True)`` call.  A row accepts the
+leading run ``n`` of proposals that match the target's own greedy picks and
+emits ``n + 1`` tokens (the target's pick after the run rides along).  The
+invariants:
+
+* **lossless** — logit row c of the verify window conditions exactly on
+  window tokens ``< c``, so every emitted token is the target's greedy pick
+  given the emitted prefix: the stream equals target-only greedy decoding
+  for ANY draft; the draft only sets the acceptance rate.  In floating
+  point that needs the same bits, not only the same function: the verify
+  window runs its fp32 reductions one position at a time at a decode
+  step's shapes (``decode_window(logits_all=True)``), and its packed GEMMs,
+  exact at any row count, over the whole window;
+* **rollback** — the verify window writes positions ``p..p+s`` into the
+  target cache and the draft wrote ``p..p+s-1`` into its own; one per-row
+  ``lengths = p + n + 1`` rolls BOTH back (``KVCache.truncate``: contiguous
+  flips ``slot_pos``, paged flips ``pool_pos`` through the table; block
+  ownership stays with the allocator), and the next round's window rewrites
+  the rolled-back rows before they are read;
+* **the draft's restart window** — each round the draft starts with the
+  width-2 window ``[t_{p-1}, t_p]`` at ``(p-1, p)``: re-feeding the previous
+  token writes the one position the draft never saw when the last round
+  accepted everything, and one shape serves every outcome.  Its float
+  recomputation of position ``p-1`` can round differently from the prefill's
+  and so move proposals, never output;
+* **write masks** — rows not decoding (idle, prefilling, retired) ride
+  through the batch-wide draft and verify calls with ``write_mask=False``
+  and carry ``NO_TRUNC``, so the batch-wide truncate leaves them alone (a
+  retired slot's blocks may be shared: truncating them would corrupt the
+  surviving holder); slots that retire in a round are truncated (no-op),
+  then reset or released.
+
+Proposals stay on the device: one host read per round brings back the
+proposals and the target's picks together.  Greedy only (accepting sampled
+tokens needs the rejection-sampling correction).  The draft keeps its own
+CONTIGUOUS fp cache whatever the target's layout, and its config is the one
+the caller passed: ``fused_attn`` / ``kv_bits`` reach the target's only, so
+the draft attends by gather + ``_sdpa``.
+
+The whisper family is not in the port yet.
 """
 
 from __future__ import annotations
@@ -127,6 +170,19 @@ def resolve_sampling(req: "Request", ecfg: "EngineConfig") -> SamplingParams:
 
 
 @dataclasses.dataclass
+class DraftModel:
+    """The speculative draft: a second LM with its own contiguous KV cache.
+    The intended pairing is ``core/converter.derive_draft`` (the target's
+    leading layers packed to w1a1), but any attention LM with the target's
+    vocabulary works.  ``ctx`` carries the draft's own quant policy and
+    ``GemmConfig``; its params must live on the target's device."""
+
+    cfg: Any  # the draft's LMConfig
+    params: Params  # packed (or float) draft weights
+    ctx: QCtx
+
+
+@dataclasses.dataclass
 class EngineConfig:
     batch: int  # KV-cache slots == the decode width
     cache_len: int
@@ -157,8 +213,14 @@ class EngineConfig:
     # KV-cache storage tier: None = fp compute dtype; 8 = int8 codes + per-
     # (head, dh-group) absmax scales; 1 = sign bytes + per-head alpha (the
     # XNOR tier).  Scale leaves live beside the code leaves and ride the
-    # same writes.
+    # same writes.  The draft cache stays fp.
     kv_bits: int | None = None
+    # speculative decoding: the draft proposes `spec_len` greedy tokens per
+    # round per decoding slot and the target verifies them in one window
+    # (module docstring).  Greedy only; cache_len must cover prompt + budget
+    # + spec_len per request (checked at admission).
+    draft: DraftModel | None = None
+    spec_len: int = 2  # proposals per round (used when draft is set)
 
 
 @dataclasses.dataclass
@@ -204,8 +266,13 @@ class SchedulerStats:
     admissions: list = dataclasses.field(default_factory=list)  # (rid, slot)
     t_first: dict = dataclasses.field(default_factory=dict)  # rid -> s
     t_done: dict = dataclasses.field(default_factory=dict)  # rid -> s
-    # per-request emission timestamps (rid -> [s], run-relative)
+    # per-request emission timestamps (rid -> [s], run-relative); in spec
+    # mode an accepted run lands in one burst
     t_tokens: dict = dataclasses.field(default_factory=dict)
+    # speculative-mode counters (zero when no draft is configured)
+    spec_rounds: int = 0  # per-slot verify outcomes scored
+    spec_proposed: int = 0  # draft tokens proposed (spec_len * rounds)
+    spec_accepted: int = 0  # draft tokens the target agreed with
 
     def ttfts(self) -> list:
         """Per-request time-to-first-token (seconds, run-relative)."""
@@ -215,6 +282,11 @@ class SchedulerStats:
         """Per-token inter-emission gaps (seconds), pooled over requests."""
         return [b - a for v in self.t_tokens.values()
                 for a, b in zip(v, v[1:])]
+
+    @property
+    def acceptance_rate(self) -> float:
+        """Fraction of draft proposals the target accepted."""
+        return self.spec_accepted / max(self.spec_proposed, 1)
 
 
 def _request_generator(seed: int, rid: int, device) -> torch.Generator:
@@ -344,6 +416,80 @@ class Engine:
                     f"kv_block_size {ecfg.kv_block_size}")
             self.kv = attn_lib.PagedKVCache(block_size=ecfg.kv_block_size,
                                             kv_bits=ecfg.kv_bits)
+        if ecfg.draft is not None:
+            self._init_spec(ecfg.draft)
+
+    def _init_spec(self, draft: DraftModel) -> None:
+        """Validate the speculative configuration (module docstring: the
+        invariants)."""
+        ecfg = self.ecfg
+        if ecfg.spec_len < 1:
+            raise ValueError(f"spec_len must be >= 1, got {ecfg.spec_len}")
+        t = ecfg.temperature
+        if ecfg.sampling is not None and ecfg.sampling.temperature is not None:
+            t = ecfg.sampling.temperature
+        if t and t > 0:
+            raise ValueError(
+                "speculative decoding is greedy-only (temperature 0): "
+                "accepting sampled proposals needs the rejection-sampling "
+                "correction, which this engine does not implement")
+        if draft.cfg.padded_vocab != self.cfg.padded_vocab:
+            raise ValueError(
+                f"the draft's vocabulary ({draft.cfg.padded_vocab}) is not "
+                f"the target's ({self.cfg.padded_vocab})")
+        self.dcfg, self.dctx, self.dparams = draft.cfg, draft.ctx, draft.params
+
+    @property
+    def speculative(self) -> bool:
+        return self.ecfg.draft is not None
+
+    def d_init_cache(self) -> Params:
+        """A fresh all-slots-empty DRAFT cache (always contiguous fp)."""
+        return lm_model.init_cache(self.dcfg, self.ecfg.batch,
+                                   self.ecfg.cache_len,
+                                   self.dctx.compute_dtype, self.device,
+                                   kv=attn_lib.CONTIGUOUS)
+
+    def _verify(self, cache: Params, tokens: torch.Tensor,
+                pos_start: torch.Tensor, write_mask: torch.Tensor):
+        return lm_model.decode_window(self.params, self.cfg, self.ctx, cache,
+                                      tokens, pos_start, self.kv,
+                                      write_mask=write_mask, logits_all=True)
+
+    def _truncate(self, cache: Params, lengths: torch.Tensor) -> Params:
+        return lm_model.cache_truncate(self.cfg, cache, lengths, self.kv)
+
+    def _d_prefill(self, tokens: torch.Tensor):
+        return lm_model.prefill(self.dparams, self.dcfg, self.dctx, tokens,
+                                cache_len=self.ecfg.cache_len)
+
+    def _d_insert(self, dcache: Params, sub: Params, slots: torch.Tensor):
+        return lm_model.cache_insert(dcache, sub, slots, attn_lib.CONTIGUOUS)
+
+    def _d_window(self, dcache: Params, tokens: torch.Tensor,
+                  pos_start: torch.Tensor, write_mask: torch.Tensor):
+        """The draft's restart window, computed per position as a decode
+        step would (``logits_all``), so that a draft equal to the target
+        proposes the target's own picks bit for bit; returns the last
+        position's logits."""
+        logits, dcache = lm_model.decode_window(
+            self.dparams, self.dcfg, self.dctx, dcache, tokens, pos_start,
+            attn_lib.CONTIGUOUS, write_mask=write_mask, logits_all=True)
+        return logits[:, -1:], dcache
+
+    def _d_step(self, dcache: Params, tokens: torch.Tensor, pos: torch.Tensor,
+                write_mask: torch.Tensor):
+        return lm_model.decode_step(self.dparams, self.dcfg, self.dctx, dcache,
+                                    tokens, pos, kv=attn_lib.CONTIGUOUS,
+                                    write_mask=write_mask)
+
+    def _d_truncate(self, dcache: Params, lengths: torch.Tensor) -> Params:
+        return lm_model.cache_truncate(self.dcfg, dcache, lengths,
+                                       attn_lib.CONTIGUOUS)
+
+    def _d_reset(self, dcache: Params, slot: int) -> Params:
+        return lm_model.cache_reset(self.dcfg, dcache, slot,
+                                    attn_lib.CONTIGUOUS)
 
     @property
     def paged(self) -> bool:
@@ -444,13 +590,23 @@ class Scheduler:
     prefill for per-request chunked prefill + prefix sharing (module
     docstring has the invariants)."""
 
+    # per-row `lengths` for rows the batch-wide truncate must not touch
+    # (idle / prefilling / just-retired rows: a retired slot's blocks may be
+    # shared, and truncating them would corrupt the surviving holder)
+    NO_TRUNC = 1 << 30
+
     def __init__(self, engine: Engine):
         self.eng = engine
         self.queue: collections.deque[Request] = collections.deque()
         self.slots: list[SlotState | None] = [None] * engine.ecfg.batch
         self.stats = SchedulerStats()
+        self.last_stats = self.stats  # the same object, as run() leaves it
         self._results: dict[int, np.ndarray] = {}
         self._next_rid = 0
+        # spec mode: the token at pos-1 per slot (the draft's restart window
+        # re-feeds it) and the draft's own contiguous cache
+        self._prev = np.zeros((engine.ecfg.batch,), np.int32)
+        self._dcache: Params | None = None
         if engine.paged:
             bs = engine.kv.block_size
             self.bps = engine.ecfg.cache_len // bs
@@ -503,7 +659,20 @@ class Scheduler:
         return self.eng._sample(logits, gens, temps, active).cpu().numpy()
 
     def _new_state(self, r: Request) -> SlotState:
-        sp = resolve_sampling(r, self.eng.ecfg)
+        ecfg = self.eng.ecfg
+        sp = resolve_sampling(r, ecfg)
+        if self.eng.speculative:
+            if sp.temperature and sp.temperature > 0:
+                raise ValueError(
+                    f"rid {r.rid}: speculative decoding is greedy-only "
+                    f"(got temperature {sp.temperature})")
+            need = len(r.prompt) + sp.max_new_tokens + ecfg.spec_len
+            if need > ecfg.cache_len:
+                raise ValueError(
+                    f"rid {r.rid}: cache_len {ecfg.cache_len} < prompt "
+                    f"({len(r.prompt)}) + budget ({sp.max_new_tokens}) + "
+                    f"spec_len ({ecfg.spec_len}): the verify window would "
+                    f"write past the cache")
         gen = None
         if sp.temperature and sp.temperature > 0:
             gen = _request_generator(sp.seed, r.rid, self.eng.device)
@@ -529,10 +698,18 @@ class Scheduler:
 
             prompts = np.stack([np.asarray(r.prompt) for r in group])
             states = [self._new_state(r) for r in group]
-            logits, sub_cache = eng._prefill(self._device(prompts, torch.long))
+            tokens = self._device(prompts, torch.long)
+            logits, sub_cache = eng._prefill(tokens)
             self.stats.prefills += 1
             first = self._sample_for(logits, states)
             cache = eng._insert(cache, sub_cache, self._device(taken))
+            if eng.speculative:
+                # the draft prefills the same group into the same slots of
+                # its own cache; its first proposal comes from the next
+                # round's restart window
+                _, d_sub = eng._d_prefill(tokens)
+                self._dcache = eng._d_insert(self._dcache, d_sub,
+                                             self._device(taken))
             start_pos = prompts.shape[1]
             for g, i in enumerate(taken):
                 st = states[g]
@@ -546,6 +723,7 @@ class Scheduler:
                 else:
                     tok[i] = first[g]
                     pos[i] = start_pos
+                    self._prev[i] = prompts[g, -1]
         return cache, tok, pos
 
     def _device(self, x: np.ndarray, dtype=None) -> torch.Tensor:
@@ -558,6 +736,8 @@ class Scheduler:
         eng, ecfg = self.eng, self.eng.ecfg
         self._t0 = time.perf_counter()
         cache = eng.init_cache()
+        if eng.speculative:
+            self._dcache = eng.d_init_cache()
         b = ecfg.batch
         tok = np.zeros((b,), np.int32)
         pos = np.zeros((b,), np.int32)
@@ -567,6 +747,9 @@ class Scheduler:
             active = np.array([s is not None for s in self.slots])
             if not active.any():
                 continue  # everything admitted retired on its first token
+            if eng.speculative:
+                cache, tok, pos = self._spec_round(cache, tok, pos, active)
+                continue
             logits, cache = eng._decode(
                 cache, self._device(tok, torch.long)[:, None],
                 self._device(pos))
@@ -579,7 +762,89 @@ class Scheduler:
                 st = self.slots[i]
                 if st is not None and self._emit(i, st, int(sampled[i])):
                     cache = eng._reset(cache, i)
+        self.last_stats = self.stats
         return self._results
+
+    # -- speculative rounds (both cache layouts) ---------------------------
+
+    def _spec_round(self, cache, tok, pos, dec):
+        """One speculative round for every decoding row (``dec``).
+
+        Draft: the width-2 restart window ``[prev, tok]`` at ``(pos-1,
+        pos)``, then ``spec_len - 1`` single steps, its proposals kept on
+        the device.  Target: ONE ``logits_all`` verify window over ``[tok,
+        d_1..d_s]``, then one host read of the proposals and the target's
+        picks.  Per row the leading run of proposals that match the
+        target's picks is accepted and ``n + 1`` tokens emit; both caches
+        roll back to the shared per-row ``lengths = pos + n + 1`` (skipped
+        when no row rolled back), and then the rows that retired are reset
+        or released.  Module docstring: the invariants."""
+        eng, ecfg = self.eng, self.eng.ecfg
+        b, s_len = ecfg.batch, ecfg.spec_len
+        dm = self._device(dec)
+
+        d_logits, self._dcache = eng._d_window(
+            self._dcache, self._device(np.stack([self._prev, tok], axis=1),
+                                       torch.long),
+            self._device(pos - 1), dm)
+        cur = eng._sample(d_logits, None, None, dm)
+        props = [cur]
+        dpos = self._device(pos + 1)
+        for _ in range(1, s_len):
+            d_logits, self._dcache = eng._d_step(
+                self._dcache, cur.long()[:, None], dpos, dm)
+            cur = eng._sample(d_logits, None, None, dm)
+            props.append(cur)
+            dpos = dpos + 1
+        props_d = torch.stack(props, dim=1).long()  # (B, s)
+        win = torch.cat([self._device(tok, torch.long)[:, None], props_d], 1)
+        logits, cache = eng._verify(cache, win, self._device(pos), dm)
+        self.stats.steps += 1
+        picks = torch.cat([props_d, torch.argmax(logits, dim=-1)], 1)
+        picks = picks.cpu().numpy().astype(np.int32)  # the round's host read
+        props, greedy = picks[:, :s_len], picks[:, s_len:]
+
+        lengths = np.full((b,), self.NO_TRUNC, np.int32)
+        rolled = False
+        retired: list[tuple[int, SlotState]] = []
+        for i in range(b):
+            st = self.slots[i]
+            if not dec[i] or st is None:
+                continue
+            n = 0
+            while n < s_len and props[i, n] == greedy[i, n]:
+                n += 1
+            self.stats.spec_rounds += 1
+            self.stats.spec_proposed += s_len
+            self.stats.spec_accepted += n
+            done = False
+            for j in range(n + 1):  # the target's pick rides along free
+                if self._emit(i, st, int(greedy[i, j])):
+                    done = True
+                    break
+            if done:
+                retired.append((i, st))
+                rolled = True  # the slot's window tail must not survive
+            else:
+                self._prev[i] = props[i, n - 1] if n > 0 else tok[i]
+                tok[i] = greedy[i, n]
+                pos[i] = pos[i] + n + 1
+                lengths[i] = pos[i]
+                rolled = rolled or n < s_len
+        if rolled:
+            # one per-row rollback for both models: the target wrote
+            # pos..pos+s, the draft pos..pos+s-1; rows that accepted
+            # everything carry lengths past their content (no-op)
+            ln = self._device(lengths)
+            cache = eng._truncate(cache, ln)
+            self._dcache = eng._d_truncate(self._dcache, ln)
+        for i, st in retired:
+            if eng.paged:
+                cache = self._release_slot(cache, i, st)
+            else:
+                cache = eng._reset(cache, i)
+            self._dcache = eng._d_reset(self._dcache, i)
+        return cache, tok, pos
 
     # -- paged path --------------------------------------------------------
 
@@ -675,6 +940,14 @@ class Scheduler:
                 for j in range(st.n_shared, len(st.block_hashes)):
                     self.alloc.register(st.blocks[j], st.block_hashes[j])
             st.phase = "decode"
+            if eng.speculative:
+                # the draft keeps its own contiguous prefill of the whole
+                # prompt; the restart window re-syncs it every round
+                _, d_sub = eng._d_prefill(self._device(st.prompt[None],
+                                                       torch.long))
+                self._dcache = eng._d_insert(self._dcache, d_sub,
+                                             self._device([i]))
+                self._prev[i] = int(st.prompt[-1])
             st.prompt = None  # the cache holds it now
             if self._emit(i, st, int(first[i])):
                 cache = self._release_slot(cache, i, st)
@@ -687,6 +960,8 @@ class Scheduler:
         eng, ecfg = self.eng, self.eng.ecfg
         self._t0 = time.perf_counter()
         cache = eng.init_cache()
+        if eng.speculative:
+            self._dcache = eng.d_init_cache()
         b = ecfg.batch
         tok = np.zeros((b,), np.int32)
         pos = np.zeros((b,), np.int32)
@@ -703,6 +978,9 @@ class Scheduler:
                             for s in self.slots])
             if not dec.any():
                 continue  # all slots still prefilling (or just drained)
+            if eng.speculative:
+                cache, tok, pos = self._spec_round(cache, tok, pos, dec)
+                continue
             dec_t = self._device(dec)
             logits, cache = eng._decode(
                 cache, self._device(tok, torch.long)[:, None],
@@ -718,4 +996,5 @@ class Scheduler:
                 if (st is not None and st.phase == "decode"
                         and self._emit(i, st, int(sampled[i]))):
                     cache = self._release_slot(cache, i, st)
+        self.last_stats = self.stats
         return self._results

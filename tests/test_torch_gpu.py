@@ -660,6 +660,62 @@ def test_smoke_serving_w4a4_vpu_equals_mxu_on_card(cuda):
         np.testing.assert_array_equal(streams["vpu"][rid], streams["mxu"][rid])
 
 
+@pytest.mark.parametrize("paged", [False, True])
+def test_smoke_spec_serving_on_card_matches_cpu(cuda, paged):
+    """Speculative serving of granite smoke (a w1a1 1-layer draft, spec_len
+    3; paged: block 8, chunk 4, shared prefixes, fused attention) on the
+    card: the greedy streams and the spec counters equal the same run on the
+    CPU, the streams equal the card's target-only streams, and K1 / K2 ran
+    7 times per packed layer per forward call of target and draft (K11 once
+    per target layer per prefill window and verify position on the paged
+    run)."""
+    spec = registry.get("granite-3-2b")
+    cfg = spec.smoke
+    cpu_params = lm.init(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(0, cfg.vocab_size, (9,)).astype(np.int32)
+    prompts = [np.concatenate([prefix, rng.integers(
+        0, cfg.vocab_size, (n,)).astype(np.int32)]) for n in (3, 3, 5, 5)]
+    extra = (dict(kv_block_size=8, prefill_chunk=4, shared_prefix=True,
+                  fused_attn=True) if paged else {})
+
+    def serve(dev, speculative=True):
+        params = tree_map(lambda x: x.to(dev), cpu_params)
+        packed, _ = converter.convert(params, QuantPolicy.binary())
+        ctx = QCtx(policy=QuantPolicy.binary(), compute_dtype=torch.float32,
+                   gemm_config=dispatch.GemmConfig(backend="vpu"))
+        draft = None
+        if speculative:
+            dparams, dcfg, _ = converter.derive_draft(params, cfg, n_layers=1)
+            draft = engine.DraftModel(cfg=dcfg, params=dparams, ctx=ctx)
+        eng = engine.Engine(spec, cfg, ctx, packed, engine.EngineConfig(
+            batch=2, cache_len=32, max_new_tokens=6, draft=draft, spec_len=3,
+            **extra))
+        sched = engine.Scheduler(eng)
+        for pr in prompts:
+            sched.submit(engine.Request(prompt=pr))
+        _cuda.reset_launches()
+        return sched.run(), sched.stats
+
+    got, st = serve(cuda)
+    t_calls = st.prefills + st.steps
+    d_calls = (len(prompts) if paged else st.prefills) + 3 * st.steps
+    want = 7 * (cfg.n_layers * t_calls + d_calls)
+    assert _cuda.LAUNCHES["pack_sign"] == _cuda.LAUNCHES["xnor_mismatch"] == want
+    # the verify attends one window position per call
+    assert _cuda.LAUNCHES["flash_decode"] == (
+        cfg.n_layers * (st.prefills + 4 * st.steps) if paged else 0)
+    ref, _ = serve(cuda, speculative=False)
+    on_cpu, cpu_st = serve(torch.device("cpu"))
+    assert sorted(got) == sorted(ref) == sorted(on_cpu) == [0, 1, 2, 3]
+    for rid in got:
+        np.testing.assert_array_equal(got[rid], ref[rid])
+        np.testing.assert_array_equal(got[rid], on_cpu[rid])
+    assert (st.spec_rounds, st.spec_proposed, st.spec_accepted, st.steps) == (
+        cpu_st.spec_rounds, cpu_st.spec_proposed, cpu_st.spec_accepted,
+        cpu_st.steps)
+
+
 def _paged_case(dev, tier, b, c, g, dh, bs=16, bps=7, kvh=2, seed=0,
                 lens=None):
     """A shuffled pool holding ragged slots (slot 0 with a -1 entry in the

@@ -198,8 +198,9 @@ def test_contiguous_cache_fill_insert_reset_match_jax():
 
 def test_slice_3_paths_raise():
     """Slice 3's paged / fused / quantized-KV half is ported and
-    constructs; its speculative half (ROADMAP A11) and ``_sdpa_chunked``
-    still raise, naming what is missing."""
+    constructs, and so is its speculative half (ROADMAP A11: the window
+    write and ``truncate``, held against JAX in tests/test_torch_spec.py);
+    ``_sdpa_chunked`` still raises, naming what is missing."""
     acfg = registry.get("granite-3-2b").smoke.attn
     import dataclasses
 
@@ -207,11 +208,11 @@ def test_slice_3_paths_raise():
     assert attention.PagedKVCache(kv_bits=1).block_size == 16
     kv = attention.ContiguousKVCache(kv_bits=1)
     cache = kv.init(1, acfg, 8, torch.float32, "cpu")
-    with pytest.raises(NotImplementedError, match="speculative decoding"):
-        kv.truncate(cache, torch.tensor([2]))
-    kw = torch.zeros((1, 2, acfg.n_kv_heads, acfg.d_head))
-    with pytest.raises(NotImplementedError, match="speculative decoding"):
-        kv.fill_window(cache, kw, kw, torch.tensor([[2, 3]]))
+    kw = torch.ones((1, 2, acfg.n_kv_heads, acfg.d_head))
+    kv.fill_window(cache, kw, -kw, torch.tensor([[2, 3]]))
+    assert cache["slot_pos"][0].tolist() == [-1, -1, 2, 3, -1, -1, -1, -1]
+    kv.truncate(cache, torch.tensor([3]))
+    assert cache["slot_pos"][0].tolist() == [-1, -1, 2, -1, -1, -1, -1, -1]
     long_cfg = dataclasses.replace(acfg, full_attn_max_seq=4)
     q = torch.zeros((1, 5, acfg.n_kv_heads, acfg.groups, acfg.d_head))
     k = torch.zeros((1, 5, acfg.n_kv_heads, acfg.d_head))

@@ -138,15 +138,30 @@ def test_cache_ops_match_jax(layout, kv_bits):
 
 
 def test_speculative_cache_ops_wait_for_their_slice():
+    """The speculative-decoding cache operations arrived with their slice:
+    the contiguous window write and ``truncate`` on both layouts give the
+    JAX package's leaves (tests/test_torch_spec.py holds them at every KV
+    tier, window width and table shape)."""
+    jcfg = jattn.AttnConfig(d_model=32, n_heads=4, n_kv_heads=2, d_head=16)
     cfg = attention.AttnConfig(d_model=32, n_heads=4, n_kv_heads=2, d_head=16)
-    for kv in (attention.CONTIGUOUS, attention.PagedKVCache(block_size=4)):
+    rng = np.random.default_rng(3)
+    k = rng.standard_normal((1, 5, 2, 16)).astype(np.float32)
+    pos = np.arange(1, 6, dtype=np.int32)[None]
+    for jkv, kv in ((jattn.CONTIGUOUS, attention.CONTIGUOUS),
+                    (jattn.PagedKVCache(block_size=4),
+                     attention.PagedKVCache(block_size=4))):
+        jc = jkv.init(1, jcfg, 8, jnp.float32)
         cache = kv.init(1, cfg, 8, torch.float32, "cpu")
-        with pytest.raises(NotImplementedError, match="speculative"):
-            kv.truncate(cache, torch.tensor([3]))
-    cache = attention.CONTIGUOUS.init(1, cfg, 8, torch.float32, "cpu")
-    k = torch.zeros((1, 2, 2, 16))
-    with pytest.raises(NotImplementedError, match="speculative"):
-        attention.CONTIGUOUS.fill_window(cache, k, k, torch.tensor([[3, 4]]))
+        if "table" in cache:
+            jc = {**jc, "table": jnp.asarray([[1, 0]], jnp.int32)}
+            cache["table"].copy_(torch.tensor([[1, 0]]))
+        jc = jkv.fill_window(jc, jnp.asarray(k), jnp.asarray(-k),
+                             jnp.asarray(pos))
+        kv.fill_window(cache, torch.from_numpy(k), torch.from_numpy(-k),
+                       torch.from_numpy(pos))
+        jc = jkv.truncate(jc, jnp.asarray([3], jnp.int32))
+        kv.truncate(cache, torch.tensor([3], dtype=torch.int32))
+        _assert_leaves_equal(cache, jc)
 
 
 # ---------------------------------------------------------------------------
