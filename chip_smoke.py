@@ -9,7 +9,9 @@ contiguous cache, and packed 1-bit on the paged cache with chunked prefill,
 shared prefixes and the flash-decode kernel at every KV tier, and again
 with speculative decoding behind a w1a1 draft; then serves the MoE
 deepseek-moe-16b at full width, packed 1-bit and packed DoReFa
-w4a4, on the expert-batched kernels; last, the paper's binary LeNet and
+w4a4, on the expert-batched kernels; then the dense deepseek-7b and
+qwen2-72b at full width and full depth, qwen2-72b built one layer at a
+time and also on an 8,192-token prompt; last, the paper's binary LeNet and
 ResNet-18 at full width, their convs through im2col on the same kernels.
 
     python3 chip_smoke.py            # needs one CUDA GPU (sm_90a) and nvcc
@@ -71,7 +73,11 @@ Phases (any failure exits non-zero before the result line):
    576 at the mix's largest prefill) beside a bf16 ``torch.bmm`` yardstick,
    their bound and (K7, K9) their popcount ceiling, and K9 / K10 once more
    at decode on the buckets of a seeded top-6 routing of 4 tokens (the
-   experts touched and their planes' bytes printed beside it);
+   experts touched and their planes' bytes printed beside it); K1-K3 at
+   qwen2-72b's seven GEMMs at decode (M 4, N and K up to 29,568) and
+   summed per layer; K11 at Dh 128 with fp32 pools at qwen2-72b's heads
+   (8 kv-heads, G 8) and deepseek-7b's (32, G 1), at decode and a C 256
+   window;
 4. training: one step of granite-3-2b smoke (binary, fp32, remat) on the
    card and on the CPU from the same numpy init and batch, whose loss, grad
    norm, moments and new params must agree (``TRAIN_TOL``); then
@@ -135,18 +141,45 @@ Phases (any failure exits non-zero before the result line):
      K9 / K10 must launch 3 x MoE layers x (decode steps + prefills) times
      on the ``vpu`` / ``mxu`` runs and never elsewhere, K4 on every packed
      run;
-5b. speculative: the same granite-3-2b with a draft cut from its float
-   params (the first ``SPEC_DRAFT_LAYERS`` layers, packed w1a1):
+5b. speculative: the same granite-3-2b at full width cut to its first
+   ``SPEC_DEPTH`` layers (the script's time limit), with a draft cut from
+   its float params (the first ``SPEC_DRAFT_LAYERS`` layers, packed w1a1):
    contiguous 1-bit ``vpu`` / ``mxu`` and w4a4 ``mxu`` at spec_len 2 on
    the granite mix, the paged cell's mix fused at fp and int8 KV at
    spec_len 4, and the target as its own draft at spec_len 3; every stream
-   must equal the target-only stream of phase 5, the self-draft must
+   must equal the target-only stream of the cut target (served first, its
+   ``vpu`` and ``mxu`` streams identical, each run under the launch gate
+   of phase 5c), the self-draft must
    accept every proposal in fewer rounds than target-only decode steps,
    the prologue and GEMM kernels must launch 7 times per packed layer per
    forward call of target and draft (K11 once per target layer per prefill
    window and verify position), and the verify window's logits must equal
    the decode steps' bit for bit at full width; tokens/s, rounds,
    acceptance and a profile of one round are reported;
+5c. dense: the dense llama / qwen family at full width, float32
+   compute, seeded weights, each run with its kernel counts set to 0 just
+   before it and read just after:
+   - deepseek-7b (d_model 4096, 32 heads of 128, MHA, d_ff 11008, vocab
+     102400, untied head), all 30 layers, built whole in fp32 (27.6 GB):
+     the granite mix 1-bit packed ``vpu``, ``mxu`` and fake-quant, streams
+     identical; the paged cell's mix contiguous gather, paged gather
+     (streams == contiguous) and paged fused at fp KV (K11 at G 1, layer 0
+     within the gather oracle's bound); w4a4 ``vpu-k4`` == ``mxu-k4``;
+   - qwen2-72b (d_model 8192, 64 heads over 8 kv-heads of 128, QKV bias,
+     rope_theta 1e6, d_ff 29568, vocab 152064), first ``_sdpa_chunked``
+     against ``_sdpa`` at its layer-0 shapes and 4,096 positions (both
+     within ``ATTN_TOL`` of float64); then all 80 layers built by
+     ``lm.init_packed`` (build peak under the packed bytes plus two fp32
+     layers): the granite mix ``vpu`` == ``mxu``; the paged cell's mix
+     paged gather and paged fused at fp KV (K11 at G 8, layer 0 within the
+     oracle's bound); one 8,192-token prompt on a 8,448-row cache, its
+     prefill through ``_sdpa_chunked``, ``vpu`` == ``mxu``; and at depth 4
+     (about 24 GB of fp32 weights) ``vpu`` == ``mxu`` == fake-quant on the
+     mix and on the long prompt;
+   every run's prologue and GEMM launch 7 x layers x (decode steps +
+   prefill calls) times (K11 layers x (decode steps + windows) on fused
+   runs) and nothing else; the decode steps of both models' ``vpu`` runs
+   and qwen2-72b's paged fused run are profiled;
 6. cnn: the paper's binary CNNs (``models/cnn.py``, fp32), their convs
    as im2col + the packed GEMMs on K1-K6:
    - smoke LeNet-MNIST and ResNet-18-CIFAR from one seeded init on the CPU
@@ -255,10 +288,12 @@ PREFIX_LEN = 512
 TAIL_LENS = (64, 448)  # unique tail per request, uniform from the seed
 PAGED_REQUESTS = 8
 PAGED_NEW_TOKENS = 32
-# speculative decoding: a w1a1 draft of granite's leading quarter (10 of 40
-# layers); the verify windows K11 is timed at, spec_len + 1 for spec_len 2
-# (C*G 12, the decode tile) and 4 (C*G 20, the window tile)
-SPEC_DRAFT_LAYERS = 10
+# speculative decoding: granite cut to 16 of its 40 layers (the script's
+# time limit) and a w1a1 draft of the cut's leading quarter (4 layers); the
+# verify windows K11 is timed at, spec_len + 1 for spec_len 2 (C*G 12, the
+# decode tile) and 4 (C*G 20, the window tile)
+SPEC_DEPTH = 16
+SPEC_DRAFT_LAYERS = 4
 SPEC_VERIFY_C = (3, 5)
 # the MoE cell: deepseek-moe-16b's expert GEMMs, (name, N, K) per expert
 TRAIN_BATCH, TRAIN_SEQ = 16, 256  # the full-width train step's tokens
@@ -286,6 +321,30 @@ CNN_TIE_EPS = 1e-5
 CNN_TRAIN_STEPS = 20
 CNN_TIMING_REPS = 10
 CNN_PROFILE_REPS = 5  # forwards in one profiler window
+
+# the dense phase: deepseek-7b and qwen2-72b at full width; qwen2-72b's
+# long prompt (its prefill takes _sdpa_chunked) on one slot, its fake-quant
+# oracle depth, and the length _sdpa_chunked is held against _sdpa at
+LONG_PROMPT = 8192
+LONG_CACHE_LEN = LONG_PROMPT + CACHE_LEN
+DENSE_CUT_DEPTH = 4
+CHUNKED_SEQ = 4096
+# qwen2-72b's packed GEMMs, (name, N, K), in the order a layer runs them
+QWEN_LAYER_GEMMS = (("q", 8192, 8192), ("k", 1024, 8192), ("v", 1024, 8192),
+                    ("o", 8192, 8192), ("up", 29568, 8192),
+                    ("gate", 29568, 8192), ("down", 8192, 29568))
+# deepseek-7b's packed GEMMs, (name, N, K)
+DEEPSEEK_LAYER_GEMMS = (("q", 4096, 4096), ("k", 4096, 4096),
+                        ("v", 4096, 4096), ("o", 4096, 4096),
+                        ("up", 11008, 4096), ("gate", 11008, 4096),
+                        ("down", 4096, 11008))
+# the dense models' distinct (N, K), held against the plain versions at the
+# rows their serving runs give the GEMMs: decode (1, 4) and a prefill
+# admission group (256); qwen2-72b's also at its long prompt's rows
+DENSE_SHAPES = tuple(sorted({(n, k) for _, n, k in QWEN_LAYER_GEMMS
+                             + DEEPSEEK_LAYER_GEMMS}))
+DENSE_MS = (1, DECODE_M, PREFILL_M)
+QWEN_SHAPES = tuple(sorted({(n, k) for _, n, k in QWEN_LAYER_GEMMS}))
 
 MOE_ARCH = "deepseek-moe-16b"
 MOE_GEMMS = (("up", 1408, 2048), ("gate", 1408, 2048), ("down", 2048, 1408))
@@ -388,6 +447,8 @@ def parity(dev) -> dict[str, float]:
                                                           (513, 8191), (65, 33))]
     # K3's tile boundaries, K ragged in the last word
     cases += [(m, n, 32 * kw - (m + n + kw) % 32) for m, n, kw in TILE_CASES]
+    # the dense models' GEMMs: N / K up to 29,568 (Kw 924)
+    cases += [(m, n, k) for n, k in DENSE_SHAPES for m in DENSE_MS]
     err = {name: 0.0 for name in ONE_BIT}
     for m, n, k in cases:
         x = edge_floats((m, k), gen, dev)
@@ -419,13 +480,55 @@ def parity(dev) -> dict[str, float]:
                                        (again, got)]}, err,
                         f"M={m} K={k} {kind}")
             n_k1 += 1
-    print(f"parity: {len(cases)} shapes, K1-K3 equal their plain versions "
-          f"exactly (int32), and K3 == 32*Kw - 2*K2; K1 also at {n_k1} "
+    long_rows = parity_long_prefill(dev, gen, err)
+    print(f"parity: {len(cases)} shapes ({len(DENSE_SHAPES) * len(DENSE_MS)} "
+          f"of them qwen2-72b's and deepseek-7b's GEMMs at M {DENSE_MS}), "
+          f"K1-K3 equal their plain versions exactly (int32), and K3 == "
+          f"32*Kw - 2*K2; K1 also at {n_k1} "
           f"cases ({len(K1_CASES)} shapes: the MoE prologue's, K 10944, "
           f"4096 rows of one word and K either side of the plan's chunk "
           f"edges; floats, rows of edge values in every lane and a "
-          f"misaligned view), each called twice, bit for bit")
+          f"misaligned view), each called twice, bit for bit; at qwen2-72b's "
+          f"{LONG_PROMPT}-row prefill ({len(QWEN_SHAPES)} shapes) K1 whole, "
+          f"K3 == 32*Kw - 2*K2 over the whole output and both against their "
+          f"plain versions on {long_rows} rows (the first row block and the "
+          f"last ones)")
     return err
+
+
+def parity_long_prefill(dev, gen, err: dict) -> int:
+    """K1-K3 at qwen2-72b's ``LONG_PROMPT``-row prefill GEMMs (K2's
+    prefill row blocks and K3's split-K plan at M 8,192, Kw up to 924):
+    K1 exactly against its plain version over the whole input, K3 == 32*Kw
+    - 2*K2 exactly over the whole output, and K2 / K3 exactly against their
+    plain versions on the first 64 rows and the last 160 (which hold the
+    last row block of either tile).  Returns the rows held against the
+    plain versions."""
+    from repro_torch.kernels import pack_bits, xnor_gemm
+
+    m = LONG_PROMPT
+    rows = torch.cat([torch.arange(64), torch.arange(m - 160, m)]).to(dev)
+    for n, k in QWEN_SHAPES:
+        x = edge_floats((m, k), gen, dev)
+        w = edge_floats((n, k), gen, dev)
+        xp, wp = pack_bits.pack_sign(x), pack_bits.pack_sign(w)
+        mism = xnor_gemm.xnor_mismatch(xp, wp)
+        dot = xnor_gemm.xnor_dot_mxu(xp, wp)
+        torch.cuda.synchronize()
+        check_exact({"pack_sign": [(xp, pack_bits.pack_sign_plain(x)),
+                                   (wp, pack_bits.pack_sign_plain(w))]},
+                    err, f"M={m} N={n} K={k}")
+        del x, w
+        check_exact({"xnor_dot_mxu": [(dot, 32 * xp.shape[1] - 2 * mism)]},
+                    err, f"M={m} N={n} K={k}, whole output")
+        sub = xp[rows]
+        check_exact({"xnor_mismatch": [(mism[rows], xnor_gemm.xnor_mismatch_plain(
+                         sub, wp))],
+                     "xnor_dot_mxu": [(dot[rows], xnor_gemm.xnor_dot_mxu_plain(
+                         sub, wp))]}, err, f"M={m} N={n} K={k}, {len(rows)} rows")
+        del xp, wp, mism, dot, sub
+        torch.cuda.empty_cache()
+    return len(rows)
 
 
 def check_exact(pairs: dict, err: dict, where: str) -> None:
@@ -520,10 +623,13 @@ def parity_kbit(dev) -> dict[str, float]:
                 check_exact({"quant_pack_planes": list(zip(got, want))}, err,
                             f"M={m} K={k} a_bits={a_bits}")
                 n_k4 += 1
-    # the MoE prologue's rows, long rows, chunk edges, rows of code ties, and
-    # a second call that must repeat the first bit for bit
+    # the MoE prologue's rows, long rows, chunk edges, rows of code ties, the
+    # dense models' GEMM inputs at w4a4, and a second call that must repeat
+    # the first bit for bit
     k4_new = [(m, k, a_bits, "acts") for m, k in K4_CASES
               for a_bits in (2, 3, 4, 8)]
+    k4_new += [(m, k, 4, "acts") for k in sorted({k for _, k in DENSE_SHAPES})
+               for m in DENSE_MS]
     k4_new += [(m, k, a_bits, "ties") for m, k in K4_TIE_SHAPES
                for a_bits in (2, 3, 4, 8)]
     for m, k, a_bits, kind in k4_new:
@@ -543,6 +649,11 @@ def parity_kbit(dev) -> dict[str, float]:
              for _, n, k in LAYER_GEMMS for m in (1, DECODE_M, PREFILL_M)]
     cases += [(m, n, k, PLANE_PAIRS) for m in (1, 3, 128)
               for n, k in ((2047, 2049), (513, 8191), (65, 33))]
+    # the dense models' GEMMs at w4a4 (deepseek-7b serves it); past the
+    # decode rows of a GEMM larger than granite's, K5's plain version (ka*kb
+    # int64 popcount passes) would take seconds a call, so K5 is held there
+    # against K6's plain version, which computes the same integer in float64
+    cases += [(m, n, k, ((4, 4),)) for n, k in DENSE_SHAPES for m in DENSE_MS]
     n_gemm = sum(len(pairs) for *_, pairs in cases)
     for m, n, k, pairs in cases:
         for ka, kb in pairs:
@@ -551,11 +662,12 @@ def parity_kbit(dev) -> dict[str, float]:
             wp = weight_planes(n, k, kb, gen, dev)
             s5 = kbit_gemm.kbit_plane_gemm(ap, wp)
             s6 = kbit_mxu.kbit_mxu_gemm(ap, wp)
-            want = kbit_gemm.kbit_plane_gemm_plain(ap, wp)
+            want6 = kbit_mxu.kbit_mxu_gemm_plain(ap, wp)
+            want = (kbit_gemm.kbit_plane_gemm_plain(ap, wp)
+                    if m <= DECODE_M or n * k <= 8192 * 2048 else want6)
             torch.cuda.synchronize()
             check_exact({"kbit_plane_gemm": [(s5, want)],
-                         "kbit_mxu_gemm": [(s6, kbit_mxu.kbit_mxu_gemm_plain(
-                             ap, wp)), (s6, s5)]}, err,
+                         "kbit_mxu_gemm": [(s6, want6), (s6, s5)]}, err,
                         f"M={m} N={n} K={k} ka={ka} kb={kb}")
     # the tiles' edges, one plane pair per shape in turn, and zero rows at
     # every plane pair (random words, which reach every bit)
@@ -582,7 +694,9 @@ def parity_kbit(dev) -> dict[str, float]:
           f"code ties, each called twice, bit for bit), K5/K6 at "
           f"{n_gemm} (shape, plane pair) cases ({len(cases)} shapes, "
           f"granite's at M {DECODE_M} and {PREFILL_M} over "
-          f"{EDGE_PLANE_PAIRS}), "
+          f"{EDGE_PLANE_PAIRS}, qwen2-72b's and deepseek-7b's at M "
+          f"{DENSE_MS} at (4, 4); K5 against K6's plain version above "
+          f"M {DECODE_M} there), "
           f"{len(TILE_CASES)} tile-edge shapes (ka, kb cycling over "
           f"{EDGE_PLANE_PAIRS}) and {len(edges) - len(TILE_CASES)} zero-row "
           f"cases: equal to their plain versions and K5 == K6, exactly "
@@ -1263,9 +1377,13 @@ def operands(bits: int, m: int, n: int, k: int, copies: int, gen, dev):
 FAMILIES = {1: ONE_BIT, 4: K_BIT, 8: K_BIT}
 
 
-def timing(dev, popc_per_s: float, floor_ms: float) -> tuple[dict, list]:
-    """Every kernel at the decode and prefill rows of each layer GEMM, 1-bit
-    (K1-K3), w4a4 and w8a8 (K4-K6): kernel, plain version, the bf16
+def timing(dev, popc_per_s: float, floor_ms: float, gemms=LAYER_GEMMS,
+           families=FAMILIES, ms=(DECODE_M, PREFILL_M),
+           model: str = "granite-3-2b") -> tuple[dict, list]:
+    """Every kernel at the decode and prefill rows (``ms``) of each layer
+    GEMM of ``model`` (``gemms``: granite-3-2b's by default), 1-bit
+    (K1-K3), w4a4 and w8a8 (K4-K6; ``families`` picks the widths): kernel,
+    plain version, the bf16
     yardstick and the bound; the prologues (K1, K4) also get the graph-node
     floor (``floor_ms``, :func:`graph_node_floor_ms`).  A GEMM's function is
     the integer dot of the codes, so its bound is the larger of its bytes
@@ -1295,10 +1413,10 @@ def timing(dev, popc_per_s: float, floor_ms: float) -> tuple[dict, list]:
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
-    for bits, (pro, popc_gemm, mma_gemm) in FAMILIES.items():
-        for m in (DECODE_M, PREFILL_M):
+    for bits, (pro, popc_gemm, mma_gemm) in families.items():
+        for m in ms:
             plain_iters, plain_reps = (4, 5) if m == DECODE_M else (1, 1)
-            for name, n, k in LAYER_GEMMS:
+            for name, n, k in gemms:
                 kw = (k + 31) // 32
                 nw = copies_for(bits * n * kw * 4, 512)
                 x, xp, wps, xb, wb = operands(bits, m, n, k, min(nw, 4), gen,
@@ -1307,7 +1425,8 @@ def timing(dev, popc_per_s: float, floor_ms: float) -> tuple[dict, list]:
                 nl = copies_for(n * k * 2, 64)
                 wbs = [wb.clone() for _ in range(nl)]
                 del wb
-                row = {"bits": bits, "m": m, "layer": name, "n": n, "k": k}
+                row = {"model": model, "bits": bits, "m": m, "layer": name,
+                       "n": n, "k": k}
                 # the prologue reads x and writes the words (and, at k bits,
                 # the code row-sums)
                 args = (x,) if bits == 1 else (x, bits)
@@ -1338,7 +1457,8 @@ def timing(dev, popc_per_s: float, floor_ms: float) -> tuple[dict, list]:
                 row[mma_gemm]["warm_ms"] = graph_ms(
                     fns[mma_gemm][0], [(xp, wps[0])], nw)
                 finish_row(row, FAMILIES[bits],
-                           f"timing w{bits}a{bits} M={m} {name} N={n} K={k}")
+                           f"timing{'' if model == 'granite-3-2b' else ' ' + model}"
+                           f" w{bits}a{bits} M={m} {name} N={n} K={k}")
                 rows.append(row)
                 del wps, wbs
     return decode_layer_totals(rows), rows
@@ -1464,13 +1584,19 @@ def kv_row_bytes(tier, dh: int) -> int:
             8: dh + 4 * (dh // 32 if dh % 32 == 0 else 1), 1: dh // 8 + 4}[tier]
 
 
-def timing_attn(dev) -> list:
-    """K11 at the paged serving shapes — batch 4, 8 kv-heads of 64, G 4,
+def timing_attn(dev, kvh: int = 8, g: int = 4, dh: int = 64,
+                cs=(1, SPEC_VERIFY_C[0], SPEC_VERIFY_C[1], PAGED_CHUNK),
+                tiers=ATTN_TIERS, full_cache_row: bool = True,
+                model: str = "granite-3-2b") -> list:
+    """K11 at the paged serving shapes — batch 4, ``kvh`` kv-heads of
+    ``dh``, ``g`` query heads each (granite-3-2b's 8 / 64 / 4 by default),
     a 2,048-row cache of 128 blocks of 16 per slot, all mapped as admission
-    maps them, ragged lengths from the serving mix — at decode (C 1) and one
-    prefill window (C 256, the last chunk of each prompt), per pool tier;
-    then decode at the full cache (every slot 2,048 keys long, the shape
-    ``profile_decode`` measures).  Each row names the tile and split plan.
+    maps them, ragged lengths from the serving mix — at decode (C 1), the
+    verify windows (C 3, 5) and one prefill window (C 256, the last chunk
+    of each prompt) (``cs``), per pool tier (``tiers``); then
+    (``full_cache_row``) decode at the full cache (every slot 2,048 keys
+    long, the shape ``profile_decode`` measures).  Each row names the tile
+    and split plan.
     Each row: the kernel (pool copies cycled to overflow the L2 cache, as
     40 layers read their pools cold), the plain version, the library
     yardstick (``scaled_dot_product_attention`` on the dense gathered fp32
@@ -1485,17 +1611,17 @@ def timing_attn(dev) -> list:
 
     from repro_torch.kernels import attn_decode as ak
 
-    b, kvh, g, dh, bps = DECODE_M, 8, 4, 64, PAGED_CACHE_LEN // PAGED_BLOCK
+    b, bps = DECODE_M, PAGED_CACHE_LEN // PAGED_BLOCK
     rng = np.random.default_rng(SEED + 5)
     lens = [int(x) for x in rng.integers(PREFIX_LEN + TAIL_LENS[0],
                                          PREFIX_LEN + TAIL_LENS[1] + 1, b)]
     sm = dh ** -0.5
     rows = []
-    shapes = [(c, "serving", lens) for c in (1, SPEC_VERIFY_C[0],
-                                              SPEC_VERIFY_C[1], PAGED_CHUNK)]
-    shapes.append((1, "full cache", [PAGED_CACHE_LEN] * b))
+    shapes = [(c, "serving", lens) for c in cs]
+    if full_cache_row:
+        shapes.append((1, "full cache", [PAGED_CACHE_LEN] * b))
     for c, cache, lens in shapes:
-        for tier in ATTN_TIERS:
+        for tier in tiers:
             gen = torch.Generator(device=dev).manual_seed(SEED + 6)
             args, kpos = attn_case(dev, gen, tier, "paged", lens, c, g, dh,
                                    bps, kvh, holes=False)
@@ -1550,7 +1676,8 @@ def timing_attn(dev) -> list:
                       + 2 * args["q"].numel() * 4 + args["q_pos"].numel() * 4)
             ops = 4 * g * dh * kvh * int(adm.sum())
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS_PER_S
-            row = dict(c=c, cache=cache, tile=tile, tier=str(tier), lens=lens,
+            row = dict(model=model, kvh=kvh, g=g, dh=dh, c=c, cache=cache,
+                       tile=tile, tier=str(tier), lens=lens,
                        max_abs_err=max_err,
                        ms=ms, plain_ms=plain_ms,
                        library_ms=library_ms, bytes=nbytes, ops=ops,
@@ -1558,7 +1685,8 @@ def timing_attn(dev) -> list:
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
                        copies=len(copies))
             rows.append(row)
-            print(f"timing K11 {tier} C={c} {cache} (B {b}, KVH {kvh}, G {g}, "
+            print(f"timing K11 {'' if model == 'granite-3-2b' else model + ' '}"
+                  f"{tier} C={c} {cache} (B {b}, KVH {kvh}, G {g}, "
                   f"Dh {dh}, lens {lens}; {tile}) (us): kernel {ms * 1e3:.3f} plain "
                   f"{plain_ms * 1e3:.3f} library {library_ms * 1e3:.3f} bound "
                   f"{row['bound_ms'] * 1e3:.3f} ({row['bound_by']}: "
@@ -1761,14 +1889,23 @@ def routed_row(names, fns, routed, ws, dense: dict, popc_per_s: float):
 # --------------------------------------------------------------------------
 
 
+def mix_prompts(vocab: int) -> list:
+    """The granite cells' request mix (``PROMPT_LENS``) over ``vocab``."""
+    rng = np.random.default_rng(SEED)
+    return [rng.integers(0, vocab, (n,)).astype(np.int32) for n in PROMPT_LENS]
+
+
 def serve_mix(spec, cfg, policy, runs_spec, prompts, tag: str,
-              ref_label: str = "fake-quant", profile=True):
+              ref_label: str = "fake-quant", profile=True,
+              cache_len: int = CACHE_LEN):
     """Serve ``prompts`` once per (label, params, backend[, batch]) in
-    ``runs_spec`` under ``policy`` (batch: slots, default 4); the kernel
-    counts and the peak-memory counter are set to 0 just before each run
-    and read just after.  ``profile``: True, or the labels whose decode
-    step is profiled.  Checks the ``ref_label`` run's streams.  Returns
-    (runs, launches) keyed by label."""
+    ``runs_spec`` under ``policy`` (batch: slots, default 4) on a
+    ``cache_len``-row contiguous cache; the kernel counts and the
+    peak-memory counter are set to 0 just before each run and read just
+    after.  ``profile``: True, or the labels whose decode step is
+    profiled.  Checks the ``ref_label`` run's streams.  Returns (runs,
+    launches) keyed by label; a run's ``ttft_s`` is its first request's
+    time to first token (the prefill, for one request)."""
     from repro_torch.kernels import _cuda
     from repro_torch.kernels.dispatch import GemmConfig
     from repro_torch.nn.common import QCtx
@@ -1778,7 +1915,7 @@ def serve_mix(spec, cfg, policy, runs_spec, prompts, tag: str,
     runs, launches = {}, {}
     for label, p, backend, *batch in runs_spec:
         ecfg = EngineConfig(batch=batch[0] if batch else DECODE_M,
-                            cache_len=CACHE_LEN, max_new_tokens=NEW_TOKENS)
+                            cache_len=cache_len, max_new_tokens=NEW_TOKENS)
         ctx = QCtx(policy=policy, compute_dtype=torch.float32,
                    gemm_config=GemmConfig(backend=backend))
         eng = Engine(spec, cfg, ctx, p, ecfg)
@@ -1798,6 +1935,7 @@ def serve_mix(spec, cfg, policy, runs_spec, prompts, tag: str,
         tpot = statistics.median(sched.stats.tpots()) * 1e3
         runs[label] = dict(results=results, seconds=dt, tokens=n_tok,
                            tok_s=n_tok / dt, decode_ms_step=tpot,
+                           ttft_s=sched.stats.ttfts()[0],
                            steps=sched.stats.steps,
                            prefills=sched.stats.prefills,
                            batch=ecfg.batch, peak_memory_gb=peak)
@@ -1996,9 +2134,7 @@ def training(dev) -> dict:
     torch.cuda.synchronize()
     print(f"training: trained model converted in "
           f"{time.perf_counter() - t0:.3f}s; {report.summary()}")
-    rng = np.random.default_rng(SEED)
-    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
-               for n in PROMPT_LENS]
+    prompts = mix_prompts(cfg.vocab_size)
     runs, launches = serve_mix(
         spec, cfg, binary, (("packed-vpu", packed, "vpu"),
                             ("packed-mxu", packed, "mxu"),
@@ -2046,34 +2182,6 @@ def training(dev) -> dict:
     return summary
 
 
-def moe_packed_model(cfg, dev, policy):
-    """deepseek-moe-16b's params in the draw order of ``lm.init`` (embed,
-    then layer by layer, then the head) from a seeded generator on the
-    card, each layer initialised in fp32, converted and freed before the
-    next: the fp32 model (16.4 B parameters, 65.5 GB) never exists whole.
-    Returns (packed params, fp32 bytes, bytes after packing)."""
-    from repro_torch.core import converter
-    from repro_torch.core.qlayers import dense_init
-    from repro_torch.models import lm
-    from repro_torch.nn.common import embed_init, norm_init
-
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    p = {"embed": embed_init(gen, cfg.padded_vocab, cfg.d_model),
-         "layers": []}
-    fp32 = after = 0
-    for i in range(cfg.n_layers):
-        blk, rep = converter.convert({"layers": {str(i): lm._block_init(
-            gen, i, cfg)}}, policy)
-        p["layers"].append(blk["layers"][str(i)])
-        fp32, after = fp32 + rep.bytes_fp32, after + rep.bytes_after
-    p["final_norm"] = norm_init(cfg.norm, cfg.d_model, device=dev)
-    p["lm_head"] = dense_init(gen, cfg.d_model, cfg.padded_vocab)
-    rest = 4 * sum(t.numel() for t in (p["embed"]["table"],
-                                       p["final_norm"]["scale"],
-                                       p["lm_head"]["w"]))
-    return p, fp32 + rest, after + rest
-
-
 def serving_moe(dev) -> tuple[dict, dict]:
     """The MoE cell: deepseek-moe-16b at full width (d_model 2048, 16 heads
     of 128, vocab 102400; layer 0 a dense FFN of 10944; 64 routed experts
@@ -2083,7 +2191,7 @@ def serving_moe(dev) -> tuple[dict, dict]:
     attention.  Runs, each with its kernel counts set to 0 just before it:
 
     - all 28 layers, packed ``vpu`` and ``mxu`` (built layer by layer,
-      ``moe_packed_model``): their greedy streams must be identical (the
+      ``lm.init_packed``): their greedy streams must be identical (the
       same integer dots);
     - depth 4 (layer 0 + 3 MoE layers, full width): packed ``vpu``, packed
       ``mxu``, fake-quant and packed ``vpu`` again; all four streams must
@@ -2114,15 +2222,15 @@ def serving_moe(dev) -> tuple[dict, dict]:
                   28):
         raise AssertionError(f"deepseek-moe-16b widths changed: {widths}")
     binary = QuantPolicy.binary()
-    rng = np.random.default_rng(SEED)
-    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
-               for n in PROMPT_LENS]
+    prompts = mix_prompts(cfg.vocab_size)
 
     # full depth, packed only
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    packed, fp32_bytes, packed_bytes = moe_packed_model(cfg, dev, binary)
+    packed, report, _ = lm.init_packed(
+        torch.Generator(device=dev).manual_seed(SEED), cfg, binary)
+    fp32_bytes, packed_bytes = report.bytes_fp32, report.bytes_after
     torch.cuda.synchronize()
     build_peak = torch.cuda.max_memory_allocated() / 1e9
     print(f"serving MoE: {MOE_ARCH} full width, all {cfg.n_layers} layers, "
@@ -2264,9 +2372,7 @@ def serving_moe_kbit(dev) -> tuple[dict, dict]:
     spec = registry.get(MOE_ARCH)
     cfg = spec.config
     w4a4 = QuantPolicy.quantized(4)
-    rng = np.random.default_rng(SEED)
-    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
-               for n in PROMPT_LENS]
+    prompts = mix_prompts(cfg.vocab_size)
 
     def gate(runs, launches, tag, n_layers):
         gate_moe_launches(runs, launches, tag,
@@ -2282,7 +2388,9 @@ def serving_moe_kbit(dev) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    packed, fp32_bytes, packed_bytes = moe_packed_model(cfg, dev, w4a4)
+    packed, report, _ = lm.init_packed(
+        torch.Generator(device=dev).manual_seed(SEED), cfg, w4a4)
+    fp32_bytes, packed_bytes = report.bytes_fp32, report.bytes_after
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     build_peak = torch.cuda.max_memory_allocated() / 1e9
@@ -2460,9 +2568,7 @@ def serving(dev) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     print(f"serving: w4a4 convert {time.perf_counter() - t0:.3f}s; "
           f"{report4.summary()}")
-    rng = np.random.default_rng(SEED)
-    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
-               for n in PROMPT_LENS]
+    prompts = mix_prompts(cfg.vocab_size)
 
     # logits of one prompt are finite, of the padded shape, pad-masked
     for pol, p in ((binary, packed), (w4a4, packed4)):
@@ -2500,7 +2606,7 @@ def serving(dev) -> tuple[dict, dict]:
         raise AssertionError(f"1-bit path did not run through the kernels: "
                              f"{launches}")
     t0 = time.perf_counter()
-    k11_launches, paged, paged_runs = serving_paged(spec, cfg, packed, dev)
+    k11_launches, paged = serving_paged(spec, cfg, packed, dev)
     print(f"serving: paged cell {time.perf_counter() - t0:.3f}s")
 
     runs4, launches4 = serve_mix(
@@ -2544,11 +2650,9 @@ def serving(dev) -> tuple[dict, dict]:
     summary["w4a4 agreement with fake-quant"] = agreement
     summary["layer0 packed vs fake-quant"] = layer0
     summary["paged cell"] = paged
-    # what the speculative phase serves again and holds its streams against
+    # what the speculative phase cuts and serves again
     state = dict(spec=spec, cfg=cfg, params=params, packed=packed,
-                 packed4=packed4, prompts=prompts, runs=runs, runs4=runs4,
-                 paged_runs=paged_runs,
-                 paged_profiles=paged["decode_profiles"])
+                 packed4=packed4, prompts=prompts)
     return main_launches, summary, state
 
 
@@ -2567,9 +2671,13 @@ SPEC_KERNELS = {("binary", "vpu"): ("pack_sign", "xnor_mismatch"),
 
 
 def speculative(dev, served: dict) -> dict:
-    """Phase 5b: speculative decoding on full-width granite-3-2b (40
-    layers).  The draft is the serving phase's float params cut to their
-    leading ``SPEC_DRAFT_LAYERS`` layers and packed to w1a1
+    """Phase 5b: speculative decoding on full-width granite-3-2b cut to
+    its first ``SPEC_DEPTH`` of 40 layers (the serving phase's params cut;
+    the script's time limit).  The target-only runs come first at that
+    depth: the granite mix packed 1-bit ``vpu`` and ``mxu`` (streams
+    identical) and w4a4 ``mxu``, and the paged cell's mix fused at fp and
+    int8 KV, each under :func:`dense_launch_gate`.  The draft is the cut
+    float params' leading ``SPEC_DRAFT_LAYERS`` layers packed to w1a1
     (``converter.derive_draft``); it runs its own contiguous fp cache, with
     the target's ``GemmConfig`` (so K1 + K2 under ``vpu``, K1 + K3 under
     ``mxu``).  Runs (``SPEC_RUNS``): contiguous 1-bit ``vpu`` and ``mxu``
@@ -2577,8 +2685,8 @@ def speculative(dev, served: dict) -> dict:
     draft, the paged cell's mix at spec_len 4 fused at fp and int8 KV (K11
     verifies 5-row windows), and the target as its own draft at spec_len 3.
     Each run's kernel counts are set to 0 just before it and read just
-    after.  Gates: every stream equals the target-only stream the serving
-    phase produced; the target-as-draft acceptance is exactly 1.0 with
+    after.  Gates: every stream equals its target-only stream; the
+    target-as-draft acceptance is exactly 1.0 with
     fewer verify rounds than target-only decode steps; each packed GEMM
     kernel and its prologue launch 7 times per packed layer per forward
     call (target prefills and verify windows, draft prefills, restart
@@ -2601,25 +2709,42 @@ def speculative(dev, served: dict) -> dict:
     from repro_torch.serve.engine import (DraftModel, Engine, EngineConfig,
                                           Request, Scheduler)
 
-    spec, cfg = served["spec"], served["cfg"]
-    binary = QuantPolicy.binary()
+    spec, full = served["spec"], served["cfg"]
+    cfg = dataclasses.replace(full, n_layers=SPEC_DEPTH)
+
+    def cut(tree):
+        return {**tree, "layers": tree["layers"][:SPEC_DEPTH]}
+
+    binary, w4a4 = QuantPolicy.binary(), QuantPolicy.quantized(4)
+    targets = {"binary": cut(served["packed"]), "w4a4": cut(served["packed4"])}
     t0 = time.perf_counter()
     dparams, dcfg, report = converter.derive_draft(
-        served["params"], cfg, n_layers=SPEC_DRAFT_LAYERS, policy=binary)
+        cut(served["params"]), cfg, n_layers=SPEC_DRAFT_LAYERS, policy=binary)
     torch.cuda.synchronize()
-    print(f"speculative: draft {dcfg.n_layers} of {cfg.n_layers} layers, "
-          f"w1a1, {report.summary()}, cut and packed in "
-          f"{time.perf_counter() - t0:.3f}s")
-    paged_prompts_ = paged_prompts(cfg.vocab_size)
-    target_only = {**served["runs"],
-                   **{"w4a4 " + k: v for k, v in served["runs4"].items()},
-                   **served["paged_runs"]}
+    print(f"speculative: target {cfg.n_layers} of {full.n_layers} layers; "
+          f"draft {dcfg.n_layers} layers, w1a1, {report.summary()}, cut and "
+          f"packed in {time.perf_counter() - t0:.3f}s")
+    tag = f"depth {SPEC_DEPTH} "
+    runs1, _ = dense_mix(spec, cfg, binary, (
+        ("packed-vpu", targets["binary"], "vpu"),
+        ("packed-mxu", targets["binary"], "mxu")), served["prompts"], tag,
+        profile=("packed-vpu",))
+    runs4, _ = dense_mix(spec, cfg, w4a4, (
+        ("packed-mxu", targets["w4a4"], "mxu"),), served["prompts"],
+        tag + "w4a4 ", bits=4)
+    paged_prompts_, paged_runs, engines = dense_paged(
+        spec, cfg, targets["binary"], ("paged-fused", "paged-fused-kv8"), tag)
+    paged_profile = profile_decode(engines.pop("paged-fused"),
+                                   f"{tag}paged cell paged-fused")
+    del engines
+    target_only = {**runs1, **{"w4a4 " + k: v for k, v in runs4.items()},
+                   **paged_runs}
     paged_cfg = dict(kv_block_size=PAGED_BLOCK, prefill_chunk=PAGED_CHUNK,
                      shared_prefix=True, fused_attn=True)
     runs = {}
     for label, quant, backend, s_len, draft_kind, ref_label in SPEC_RUNS:
-        policy = binary if quant == "binary" else QuantPolicy.quantized(4)
-        params = served["packed"] if quant == "binary" else served["packed4"]
+        policy = binary if quant == "binary" else w4a4
+        params = targets[quant]
         ctx = QCtx(policy=policy, compute_dtype=torch.float32,
                    gemm_config=GemmConfig(backend=backend))
         if draft_kind == "target":
@@ -2706,12 +2831,11 @@ def speculative(dev, served: dict) -> dict:
         if label == "spec-vpu":
             runs[label]["window_bits"] = window_bits(eng, served["prompts"])
         if label in ("spec-vpu", "spec-paged-fused"):
-            step = (served["paged_profiles"][ref_label] if paged
-                    else ref["decode_profile"])
+            step = paged_profile if paged else ref["decode_profile"]
             runs[label]["round_profile"] = profile_spec_round(eng, where)
             runs[label]["target_only_step_profile"] = step
             print(f"profile {where}: against the target-only decode step "
-                  f"of the serving phase, wall {step['wall_ms_per_step']:.4f}"
+                  f"at depth {SPEC_DEPTH}, wall {step['wall_ms_per_step']:.4f}"
                   f" ms, device {step['device_ms_per_step']} ms")
         del eng, sched
     print("speculative: every stream equals its target-only stream; "
@@ -2995,79 +3119,19 @@ PAGED_RUNS = (  # label, EngineConfig fields beyond the base
 def serving_paged(spec, cfg, packed, dev) -> tuple[int, dict]:
     """The paged cell: 1-bit packed ``vpu`` granite-3-2b, all layers, 8
     requests (``paged_prompts``, 32 new tokens each) on 4 slots of a
-    2,048-row cache, served six ways (``PAGED_RUNS``), each with the kernel
-    counts set to 0 just before it and read just after.  Gates: every
-    stream complete and in the vocabulary; on paged runs the allocator ends
-    with no live block and ``prefill_tokens + shared_tokens`` is the sum of
-    the prompt lengths with ``shared_tokens > 0``; K11 launches ==
-    layers x (decode steps + prefill windows) on fused runs (contiguous
-    prefill is not a window) and 0 on gather runs; K1/K2 run every time.
+    2,048-row cache, served six ways (``PAGED_RUNS``, each through
+    :func:`serve_paged` and its gates).
     Then layer 0's fused attention is held against the gather oracle at
     every pool tier (:func:`layer0_attention`).  Stream agreements between
     runs are reported, not gated.  Returns (K11 launches on the
-    ``paged-fused`` run, summary, the runs by label with their streams)."""
-    from repro_torch.core.policy import QuantPolicy
-    from repro_torch.kernels import _cuda
-    from repro_torch.kernels.dispatch import GemmConfig
+    ``paged-fused`` run, summary)."""
     from repro_torch.launch.serve import stream_agreement
-    from repro_torch.nn.common import QCtx
-    from repro_torch.serve.engine import (Engine, EngineConfig, Request,
-                                          Scheduler)
 
     prompts = paged_prompts(cfg.vocab_size)
-    total_prompt = sum(len(p) for p in prompts)
-    ctx = QCtx(policy=QuantPolicy.binary(), compute_dtype=torch.float32,
-               gemm_config=GemmConfig(backend="vpu"))
     runs, engines = {}, {}
     for label, extra in PAGED_RUNS:
-        eng = Engine(spec, cfg, ctx, packed, EngineConfig(
-            batch=DECODE_M, cache_len=PAGED_CACHE_LEN,
-            max_new_tokens=PAGED_NEW_TOKENS, **extra))
-        sched = Scheduler(eng)
-        for pr in prompts:
-            sched.submit(Request(prompt=pr))
-        torch.cuda.synchronize()
-        _cuda.reset_launches()
-        t0 = time.perf_counter()
-        results = sched.run()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        launches = dict(_cuda.LAUNCHES)
-        st = sched.stats
-        n_tok = sum(len(v) for v in results.values())
-        windows = st.prefills if eng.paged else 0
-        runs[label] = dict(
-            results=results, seconds=dt, tokens=n_tok, tok_s=n_tok / dt,
-            decode_ms_step=statistics.median(st.tpots()) * 1e3,
-            steps=st.steps, prefills=st.prefills, prefill_windows=windows,
-            prefill_tokens=st.prefill_tokens, shared_tokens=st.shared_tokens,
-            launches={k: v for k, v in launches.items() if v})
-        engines[label] = eng
-        print(f"serving paged cell {label}: {n_tok} tokens in {dt:.4f}s = "
-              f"{n_tok / dt:.3f} tok/s; decode {runs[label]['decode_ms_step']:.4f}"
-              f" ms/step (median inter-token gap); {st.steps} decode steps, "
-              f"{st.prefills} prefills ({windows} windows), prefill tokens "
-              f"{st.prefill_tokens}, shared {st.shared_tokens}; launches "
-              f"{runs[label]['launches']}")
-        where = f"paged cell {label}"
-        if sorted(results) != list(range(len(prompts))) or any(
-                len(v) != PAGED_NEW_TOKENS or not ((v >= 0) & (v < cfg.vocab_size)).all()
-                for v in results.values()):
-            raise AssertionError(f"{where}: bad streams {results}")
-        if eng.paged:
-            if sched.alloc.live_blocks != 0:
-                raise AssertionError(f"{where}: {sched.alloc.live_blocks} "
-                                     "blocks still live after the run")
-            if (st.prefill_tokens + st.shared_tokens != total_prompt
-                    or st.shared_tokens <= 0):
-                raise AssertionError(
-                    f"{where}: prefill {st.prefill_tokens} + shared "
-                    f"{st.shared_tokens} != {total_prompt} prompt tokens")
-        want = cfg.n_layers * (st.steps + windows) if extra.get("fused_attn") else 0
-        if (launches["flash_decode"] != want or launches["pack_sign"] == 0
-                or launches["xnor_mismatch"] == 0):
-            raise AssertionError(f"{where}: launches {launches}, K11 expected "
-                                 f"{want}")
+        runs[label], engines[label], _ = serve_paged(spec, cfg, packed,
+                                                     prompts, label, extra)
 
     def agree(a, b):
         same, total, first = stream_agreement(runs[a]["results"],
@@ -3092,7 +3156,79 @@ def serving_paged(spec, cfg, packed, dev) -> tuple[int, dict]:
                for label, r in runs.items()}
     summary.update(agreement=agreement, layer0_fused_vs_oracle=oracle,
                    decode_profiles=profiles, prompt_lens=[len(p) for p in prompts])
-    return runs["paged-fused"]["launches"]["flash_decode"], summary, runs
+    return runs["paged-fused"]["launches"]["flash_decode"], summary
+
+
+def serve_paged(spec, cfg, packed, prompts, label: str, extra: dict,
+                tag: str = ""):
+    """One run of the paged cell's mix (``prompts``, ``PAGED_NEW_TOKENS``
+    each) on 4 slots of a ``PAGED_CACHE_LEN``-row cache under 1-bit packed
+    ``vpu``, ``extra`` the EngineConfig fields beyond that (a
+    ``PAGED_RUNS`` entry), with the kernel counts set to 0 just before it
+    and read just after.  Gates: every stream complete and in the
+    vocabulary; on the paged layout the allocator ends with no live block
+    and ``prefill_tokens + shared_tokens`` is the prompt tokens with
+    ``shared_tokens > 0``; :func:`dense_launch_gate`: K1 and K2 launch 7 x
+    layers x (decode steps + prefill calls) times, K11 layers x (decode
+    steps + prefill windows) on fused runs (contiguous prefill is not a
+    window) and 0 on gather runs, and nothing else.  Returns (the run's
+    numbers and streams, its engine, its launches)."""
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.dispatch import GemmConfig
+    from repro_torch.nn.common import QCtx
+    from repro_torch.serve.engine import (Engine, EngineConfig, Request,
+                                          Scheduler)
+
+    ctx = QCtx(policy=QuantPolicy.binary(), compute_dtype=torch.float32,
+               gemm_config=GemmConfig(backend="vpu"))
+    total_prompt = sum(len(p) for p in prompts)
+    eng = Engine(spec, cfg, ctx, packed, EngineConfig(
+        batch=DECODE_M, cache_len=PAGED_CACHE_LEN,
+        max_new_tokens=PAGED_NEW_TOKENS, **extra))
+    sched = Scheduler(eng)
+    for pr in prompts:
+        sched.submit(Request(prompt=pr))
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    results = sched.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    st = sched.stats
+    n_tok = sum(len(v) for v in results.values())
+    windows = st.prefills if eng.paged else 0
+    run = dict(
+        results=results, seconds=dt, tokens=n_tok, tok_s=n_tok / dt,
+        decode_ms_step=statistics.median(st.tpots()) * 1e3,
+        steps=st.steps, prefills=st.prefills, prefill_windows=windows,
+        prefill_tokens=st.prefill_tokens, shared_tokens=st.shared_tokens,
+        launches={k: v for k, v in launches.items() if v})
+    print(f"serving {tag}paged cell {label}: {n_tok} tokens in {dt:.4f}s = "
+          f"{n_tok / dt:.3f} tok/s; decode {run['decode_ms_step']:.4f}"
+          f" ms/step (median inter-token gap); {st.steps} decode steps, "
+          f"{st.prefills} prefills ({windows} windows), prefill tokens "
+          f"{st.prefill_tokens}, shared {st.shared_tokens}; launches "
+          f"{run['launches']}")
+    where = f"{tag}paged cell {label}"
+    if sorted(results) != list(range(len(prompts))) or any(
+            len(v) != PAGED_NEW_TOKENS or not ((v >= 0) & (v < cfg.vocab_size)).all()
+            for v in results.values()):
+        raise AssertionError(f"{where}: bad streams {results}")
+    if eng.paged:
+        if sched.alloc.live_blocks != 0:
+            raise AssertionError(f"{where}: {sched.alloc.live_blocks} "
+                                 "blocks still live after the run")
+        if (st.prefill_tokens + st.shared_tokens != total_prompt
+                or st.shared_tokens <= 0):
+            raise AssertionError(
+                f"{where}: prefill {st.prefill_tokens} + shared "
+                f"{st.shared_tokens} != {total_prompt} prompt tokens")
+    k11 = cfg.n_layers * (st.steps + windows) if extra.get("fused_attn") else 0
+    dense_launch_gate(where, launches, cfg.n_layers, st.steps + st.prefills,
+                      "vpu", k11=k11)
+    return run, eng, launches
 
 
 def layer0_attention(eng, prompts) -> dict:
@@ -3294,6 +3430,327 @@ def profile_decode(eng, label: str, steps: int = 3) -> dict:
               f"{us['k4']:.1f}us; top: "
               + "; ".join(f"{k[:60]} {v:.1f}us" for k, v in top))
     return out
+
+
+# --------------------------------------------------------------------------
+# the dense phase: deepseek-7b and qwen2-72b at full width
+# --------------------------------------------------------------------------
+
+
+def dense_launch_gate(where: str, ls: dict, n_layers: int, calls: int,
+                      backend: str | None, bits: int = 1, k11: int = 0):
+    """The launch gate of a dense (not MoE) model's run: on a packed run
+    the prologue (K1, or
+    K4 at w4a4) and the backend's GEMM (K2 / K3, or K5 / K6) each launch
+    7 x layers x ``calls`` times (decode steps + prefill calls, a paged
+    run's windows among them), K11 ``k11`` times, and no other kernel
+    launches; a fake-quant run (``backend`` None) launches nothing."""
+    want = {"flash_decode": k11}
+    if backend is not None:
+        pro, gemm = {(1, "vpu"): ("pack_sign", "xnor_mismatch"),
+                     (1, "mxu"): ("pack_sign", "xnor_dot_mxu"),
+                     (4, "vpu"): ("quant_pack_planes", "kbit_plane_gemm"),
+                     (4, "mxu"): ("quant_pack_planes", "kbit_mxu_gemm")}[
+                         bits, backend]
+        want.update({pro: 7 * n_layers * calls, gemm: 7 * n_layers * calls})
+    want = {k: v for k, v in want.items() if v}
+    got = {k: v for k, v in ls.items() if v}
+    if got != want:
+        raise AssertionError(f"{where}: launches {got}, expected {want}")
+
+
+def dense_mix(spec, cfg, policy, runs_spec, prompts, tag: str, bits: int = 1,
+              profile=(), cache_len: int = CACHE_LEN):
+    """:func:`serve_mix` for a dense cell: every run's greedy streams must
+    equal the first run's, and each run passes :func:`dense_launch_gate`
+    (labels starting ``fake`` are fake-quant).  Returns (runs, launches)."""
+    labels = [r[0] for r in runs_spec]
+    runs, launches = serve_mix(spec, cfg, policy, runs_spec, prompts, tag,
+                               ref_label=labels[0], profile=profile,
+                               cache_len=cache_len)
+    for label, _, backend, *_ in runs_spec:
+        r = runs[label]
+        dense_launch_gate(f"{tag}{label}", launches[label], cfg.n_layers,
+                          r["steps"] + r["prefills"],
+                          None if label.startswith("fake") else backend, bits)
+        if not same_streams(runs, label, labels[0]):
+            raise AssertionError(f"{tag}{label}: greedy streams differ from "
+                                 f"{labels[0]}'s")
+    print(f"serving {tag.rstrip()}: greedy streams identical for "
+          f"{', '.join(labels)}; "
+          f"launches = 7 x {cfg.n_layers} layers x (decode steps + prefills)")
+    return runs, launches
+
+
+def dense_paged(spec, cfg, packed, labels, tag: str):
+    """The paged cell's mix (:func:`paged_prompts`) on a dense model,
+    1-bit packed ``vpu``, one run per ``PAGED_RUNS`` label in ``labels``
+    through :func:`serve_paged` and its gates.  Returns (prompts, runs,
+    engines) by label."""
+    prompts = paged_prompts(cfg.vocab_size)
+    extra = dict(PAGED_RUNS)
+    runs, engines = {}, {}
+    for label in labels:
+        runs[label], engines[label], _ = serve_paged(
+            spec, cfg, packed, prompts, label, extra[label], tag)
+    return prompts, runs, engines
+
+
+def dense_check_widths(cfg, want: tuple) -> None:
+    widths = (cfg.n_layers, cfg.d_model, cfg.attn.n_heads, cfg.attn.n_kv_heads,
+              cfg.attn.d_head, cfg.mlp.d_ff, cfg.vocab_size, cfg.attn.qkv_bias,
+              cfg.attn.rope_theta, cfg.tie_embeddings)
+    if widths != want:
+        raise AssertionError(f"{cfg.name} widths changed: {widths}")
+
+
+def strip(runs: dict) -> dict:
+    return {k: {kk: vv for kk, vv in v.items() if kk != "results"}
+            for k, v in runs.items()}
+
+
+def serving_deepseek_7b(dev) -> dict:
+    """deepseek-7b at full width (d_model 4096, 32 heads of 128 over 32
+    kv-heads: MHA, G 1; d_ff 11008; vocab 102400, untied head), all 30
+    layers, seeded params built whole in fp32 (27.6 GB, so fake-quant runs
+    at full depth), float32 compute.  Runs, each with its kernel counts
+    set to 0 just before it:
+
+    - the granite mix, 1-bit: packed ``vpu`` (K1 + K2), packed ``mxu``
+      (K1 + K3) and fake-quant, streams identical (§2.2.2);
+    - the paged cell's mix, 1-bit ``vpu``: contiguous gather, paged gather
+      (whose streams must equal the contiguous run's) and paged fused at fp
+      KV (K11 at G 1, Dh 128), whose layer-0 attention must stay within the
+      gather oracle's bound (:func:`layer0_attention`);
+    - the granite mix at w4a4: packed ``vpu`` (-> ``vpu-k4``: K4 + K5) and
+      ``mxu`` (-> ``mxu-k4``: K4 + K6), streams identical.
+
+    Every packed run passes :func:`dense_launch_gate`."""
+    from repro_torch.core import converter
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.models import lm, registry
+
+    spec = registry.get("deepseek-7b")
+    cfg = spec.config
+    dense_check_widths(cfg, (30, 4096, 32, 32, 128, 11008, 102400, False,
+                             10000.0, False))
+    binary, w4a4 = QuantPolicy.binary(), QuantPolicy.quantized(4)
+    tag = "deepseek-7b "
+    t0 = time.perf_counter()
+    params = lm.init(torch.Generator(device=dev).manual_seed(SEED), cfg)
+    packed, report = converter.convert(params, binary)
+    torch.cuda.synchronize()
+    print(f"serving {tag}full width, all {cfg.n_layers} layers; init + "
+          f"convert {time.perf_counter() - t0:.3f}s; 1-bit {report.summary()}")
+    prompts = mix_prompts(cfg.vocab_size)
+    runs, launches = dense_mix(spec, cfg, binary, (
+        ("packed-vpu", packed, "vpu"), ("packed-mxu", packed, "mxu"),
+        ("fake-quant", params, "vpu")), prompts, tag,
+        profile=("packed-vpu",))
+
+    paged_p, paged, engines = dense_paged(
+        spec, cfg, packed, ("contig-gather", "paged-gather", "paged-fused"),
+        tag)
+    if not same_streams(paged, "paged-gather", "contig-gather"):
+        raise AssertionError(f"{tag}paged cell: paged-gather streams differ "
+                             "from contig-gather's")
+    oracle = layer0_attention(engines.pop("paged-fused"), paged_p)
+    del engines
+    print(f"serving {tag}paged cell: paged-gather streams == contig-gather; "
+          f"K11 (G 1, Dh 128) launches = {cfg.n_layers} layers x (decode "
+          f"steps + windows); layer 0 fused within the gather oracle's bound "
+          f"(max |err| / bound {oracle['max_ratio']:.4f})")
+    del packed
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    packed4, report4 = converter.convert(params, w4a4)
+    torch.cuda.synchronize()
+    print(f"serving {tag}w4a4 convert {time.perf_counter() - t0:.3f}s; "
+          f"{report4.summary()}")
+    del params
+    runs4, launches4 = dense_mix(spec, cfg, w4a4, (
+        ("packed-vpu", packed4, "vpu"), ("packed-mxu", packed4, "mxu")),
+        prompts, tag + "w4a4 ", bits=4)
+    del packed4
+    torch.cuda.empty_cache()
+    return dict(model_fp32_gb=report.bytes_fp32 / 1e9,
+                model_packed_gb=report.bytes_after / 1e9,
+                mix=strip(runs), paged=strip(paged), layer0_fused_vs_oracle=oracle,
+                w4a4=strip(runs4),
+                launches={"mix": launches, "w4a4": launches4,
+                          "paged": {k: v["launches"] for k, v in paged.items()}})
+
+
+def chunked_vs_sdpa(dev, acfg) -> dict:
+    """``_sdpa_chunked`` against ``_sdpa`` at qwen2-72b's layer-0 attention
+    shapes (64 query heads over 8 kv-heads of 128) and ``CHUNKED_SEQ``
+    causal positions, on unit-normal q / k / v from the seed:
+    ``_full_sdpa`` with ``full_attn_max_seq`` lowered below the length
+    takes the chunked path (chunks of 512 queries x 1,024 keys).  Both fp32
+    paths are held against softmax attention in float64 (one kv-head at a
+    time) within ``ATTN_TOL`` and timed once each (CUDA events)."""
+    import dataclasses
+
+    from repro_torch.nn import attention
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    s, kvh, g, dh = CHUNKED_SEQ, acfg.n_kv_heads, acfg.groups, acfg.d_head
+    q = torch.randn((1, s, kvh, g, dh), generator=gen, device=dev)
+    k = torch.randn((1, s, kvh, dh), generator=gen, device=dev)
+    v = torch.randn((1, s, kvh, dh), generator=gen, device=dev)
+    pos = torch.arange(s, dtype=torch.int32, device=dev)[None]
+    low = dataclasses.replace(acfg, full_attn_max_seq=s // 2)
+    mask = attention._mask(acfg, pos, pos)
+    with torch.inference_mode():
+        chunked_ms = event_ms(lambda: attention._full_sdpa(
+            low, q, k, v, pos, pos), {}, reps=1)
+        sdpa_ms = event_ms(lambda: attention._sdpa(acfg, q, k, v, mask), {},
+                           reps=1)
+        chunked = attention._full_sdpa(low, q, k, v, pos, pos)
+        full = attention._sdpa(acfg, q, k, v, mask)
+        err = {"chunked": 0.0, "sdpa": 0.0}
+        for h in range(kvh):
+            sc = torch.einsum("qgd,kd->gqk", q[0, :, h].double(),
+                              k[0, :, h].double()) * acfg.scale
+            sc = sc.masked_fill(~mask[0], float("-inf"))
+            ref = torch.einsum("gqk,kd->qgd", torch.softmax(sc, -1),
+                               v[0, :, h].double())
+            del sc
+            for name, out in (("chunked", chunked), ("sdpa", full)):
+                err[name] = max(err[name], float(
+                    (out[0, :, h].double() - ref).abs().max()))
+    out = dict(seq=s, kvh=kvh, g=g, dh=dh, chunk_q=low.chunk_q,
+               chunk_kv=low.chunk_kv, max_abs_err_vs_float64=err,
+               bound=ATTN_TOL, chunked_ms=chunked_ms, sdpa_ms=sdpa_ms,
+               chunked_vs_sdpa=float((chunked - full).abs().max()))
+    print(f"dense qwen2-72b _sdpa_chunked vs _sdpa ({s} causal positions, "
+          f"KVH {kvh}, G {g}, Dh {dh}, chunks {low.chunk_q} x "
+          f"{low.chunk_kv}): max |err| vs float64 chunked {err['chunked']:.3e}"
+          f", _sdpa {err['sdpa']:.3e} (bound {ATTN_TOL}); chunked vs _sdpa "
+          f"{out['chunked_vs_sdpa']:.3e}; {chunked_ms:.3f} ms chunked, "
+          f"{sdpa_ms:.3f} ms _sdpa (one call each)")
+    if not torch.isfinite(chunked).all() or max(err.values()) > ATTN_TOL:
+        raise AssertionError(f"_sdpa_chunked off float64: {out}")
+    return out
+
+
+def serving_qwen2_72b(dev) -> dict:
+    """qwen2-72b at full width (d_model 8192, 64 heads of 128 over 8
+    kv-heads: G 8; QKV bias; rope_theta 1e6; d_ff 29568; vocab 152064,
+    untied head), float32 compute, 1-bit.  First ``_sdpa_chunked`` against
+    ``_sdpa`` (:func:`chunked_vs_sdpa`).  Then all 80 layers, built by
+    ``lm.init_packed`` one fp32 layer at a time (72.7 B parameters, 290.8
+    GB in fp32, never whole); gate: the build's peak memory above what was
+    allocated before stays under the packed bytes plus two fp32 layers.
+    Runs, each with its kernel counts set to 0 just before it:
+
+    - the granite mix: packed ``vpu`` and ``mxu``, streams identical;
+    - the paged cell's mix: paged gather and paged fused at fp KV (K11 at
+      G 8, Dh 128; its prefill windows at C*G 2,048), the fused run's
+      layer-0 attention within the gather oracle's bound;
+    - one ``LONG_PROMPT``-token prompt, ``NEW_TOKENS`` new tokens, one slot
+      of a ``LONG_CACHE_LEN``-row contiguous cache: its prefill takes
+      ``_sdpa_chunked``; packed ``vpu`` and ``mxu``, streams identical;
+    - depth ``DENSE_CUT_DEPTH`` at full width (about 24 GB of fp32
+      weights): packed ``vpu``, packed ``mxu`` and fake-quant, streams
+      identical on the granite mix and on the long prompt (§2.2.2).
+
+    Every run passes :func:`dense_launch_gate`."""
+    import dataclasses
+
+    from repro_torch.core import converter
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.models import lm, registry
+
+    spec = registry.get("qwen2-72b")
+    cfg = spec.config
+    dense_check_widths(cfg, (80, 8192, 64, 8, 128, 29568, 152064, True,
+                             1_000_000.0, False))
+    binary = QuantPolicy.binary()
+    tag = "qwen2-72b "
+    chunked = chunked_vs_sdpa(dev, cfg.attn)
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    packed, report, _ = lm.init_packed(
+        torch.Generator(device=dev).manual_seed(SEED), cfg, binary)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated() - before
+    layer_fp32 = sum(l.bytes_fp32 for l in report.leaves
+                     if l.path.startswith("layers/0/"))
+    limit = report.bytes_after + 2 * layer_fp32
+    print(f"serving {tag}full width, all {cfg.n_layers} layers, built by "
+          f"lm.init_packed in {build_s:.3f}s: fp32 {report.bytes_fp32 / 1e9:.3f}"
+          f" GB -> 1-bit packed {report.bytes_after / 1e9:.3f} GB; build peak "
+          f"memory {build_peak / 1e9:.3f} GB (gate: packed + 2 fp32 layers = "
+          f"{limit / 1e9:.3f} GB)")
+    if build_peak > limit:
+        raise AssertionError(f"{tag}build peak {build_peak} bytes > {limit}")
+    prompts = mix_prompts(cfg.vocab_size)
+    runs, launches = dense_mix(spec, cfg, binary, (
+        ("packed-vpu", packed, "vpu"), ("packed-mxu", packed, "mxu")),
+        prompts, tag, profile=("packed-vpu",))
+
+    paged_p, paged, engines = dense_paged(
+        spec, cfg, packed, ("paged-gather", "paged-fused"), tag)
+    oracle = layer0_attention(engines["paged-fused"], paged_p)
+    paged_profile = profile_decode(engines.pop("paged-fused"),
+                                   f"{tag}paged cell paged-fused")
+    del engines
+    print(f"serving {tag}paged cell: K11 (G 8, Dh 128) launches = "
+          f"{cfg.n_layers} layers x (decode steps + windows); layer 0 fused "
+          f"within the gather oracle's bound (max |err| / bound "
+          f"{oracle['max_ratio']:.4f})")
+
+    long_p = [np.random.default_rng(SEED + 8).integers(
+        0, cfg.vocab_size, (LONG_PROMPT,)).astype(np.int32)]
+    long_runs, long_launches = dense_mix(spec, cfg, binary, (
+        ("packed-vpu", packed, "vpu", 1), ("packed-mxu", packed, "mxu", 1)),
+        long_p, f"{tag}long prompt ", cache_len=LONG_CACHE_LEN)
+    print(f"serving {tag}long prompt: {LONG_PROMPT}-token prefill (through "
+          f"_sdpa_chunked) "
+          + ", ".join(f"{k} {v['ttft_s']:.3f}s" for k, v in long_runs.items())
+          + f" to the first token; peak memory "
+          f"{max(v['peak_memory_gb'] for v in long_runs.values()):.3f} GB")
+    del packed
+    torch.cuda.empty_cache()
+
+    cfg4 = dataclasses.replace(cfg, n_layers=DENSE_CUT_DEPTH)
+    params4 = lm.init(torch.Generator(device=dev).manual_seed(SEED), cfg4)
+    packed4, report4 = converter.convert(params4, binary)
+    print(f"serving {tag}depth {DENSE_CUT_DEPTH}: {report4.summary()}")
+    cut = f"{tag}depth {DENSE_CUT_DEPTH} "
+    runs_spec = (("packed-vpu", packed4, "vpu"), ("packed-mxu", packed4, "mxu"),
+                 ("fake-quant", params4, "vpu"))
+    runs4, launches4 = dense_mix(spec, cfg4, binary, runs_spec, prompts, cut)
+    long4, long_launches4 = dense_mix(
+        spec, cfg4, binary, tuple(r + (1,) for r in runs_spec), long_p,
+        f"{cut}long prompt ", cache_len=LONG_CACHE_LEN)
+    del params4, packed4
+    torch.cuda.empty_cache()
+    return dict(model_fp32_gb=report.bytes_fp32 / 1e9,
+                model_packed_gb=report.bytes_after / 1e9,
+                build_s=build_s, build_peak_gb=build_peak / 1e9,
+                build_gate_gb=limit / 1e9, chunked_vs_sdpa=chunked,
+                mix=strip(runs), paged=strip(paged),
+                paged_fused_profile=paged_profile,
+                layer0_fused_vs_oracle=oracle, long_prompt=strip(long_runs),
+                depth4=strip(runs4), depth4_long_prompt=strip(long4),
+                launches={"mix": launches, "long": long_launches,
+                          "paged": {k: v["launches"] for k, v in paged.items()},
+                          "depth4": launches4, "depth4 long": long_launches4})
+
+
+def dense_phase(dev) -> dict:
+    """The dense llama / qwen family at full width on K1-K6 and K11
+    (:func:`serving_deepseek_7b`, :func:`serving_qwen2_72b`)."""
+    return {"deepseek-7b": serving_deepseek_7b(dev),
+            "qwen2-72b": serving_qwen2_72b(dev)}
 
 
 def cnn_model(arch: str):
@@ -3708,11 +4165,29 @@ def main() -> int:
             print_layer_total(f"timing {tag} per granite layer (7 calls, "
                               f"M={m})", t)
     prologue_rows = timing_prologues(dev, floor_ms)
+    _, qwen_rows = timing(dev, popc_per_s, floor_ms, gemms=QWEN_LAYER_GEMMS,
+                          families={1: ONE_BIT}, ms=(DECODE_M,),
+                          model="qwen2-72b")
+    qwen_layer = {}
+    for kname, tag in (("pack_sign", "K1"), ("xnor_mismatch", "K2"),
+                       ("xnor_dot_mxu", "K3")):
+        qwen_layer[kname] = layer_total(qwen_rows, kname, DECODE_M)
+        print_layer_total(f"timing {tag} per qwen2-72b decode layer (7 "
+                          f"calls, M={DECODE_M})", qwen_layer[kname])
     moe_totals, moe_rows = timing_moe(dev, popc_per_s)
     totals.update(moe_totals)
     attn_rows = timing_attn(dev)
+    # K11 at the dense models' heads (Dh 128): qwen2-72b's 8 kv-heads of
+    # G 8 and deepseek-7b's 32 of G 1, fp32 pools, decode and a prefill
+    # window
+    dense_attn_rows = [
+        r for kvh, g, model in ((8, 8, "qwen2-72b"), (32, 1, "deepseek-7b"))
+        for r in timing_attn(dev, kvh=kvh, g=g, dh=128, cs=(1, PAGED_CHUNK),
+                             tiers=("fp32",), full_cache_row=False,
+                             model=model)]
     err["flash_decode"] = max(err["flash_decode"],
-                              *(r["max_abs_err"] for r in attn_rows))
+                              *(r["max_abs_err"] for r in attn_rows
+                                + dense_attn_rows))
     decode = next(r for r in attn_rows if r["c"] == 1 and r["tier"] == "fp32"
                   and r["cache"] == "serving")
     totals["flash_decode"] = {k: decode[k] for k in (
@@ -3739,6 +4214,9 @@ def main() -> int:
     serve_summary["MoE w4a4 cell"] = kbit_summary
     print(f"MoE w4a4 serving phase {time.perf_counter() - t0:.3f}s")
     t0 = time.perf_counter()
+    serve_summary["dense"] = dense_phase(dev)
+    print(f"dense phase {time.perf_counter() - t0:.3f}s")
+    t0 = time.perf_counter()
     cnn_summary = cnn_phase(dev)
     print(f"cnn phase {time.perf_counter() - t0:.3f}s")
 
@@ -3756,6 +4234,9 @@ def main() -> int:
     (out / "chip_smoke.json").write_text(json.dumps({
         "device": nvidia_smi("name,power.limit"), "timing_rows": rows,
         "moe_timing_rows": moe_rows, "attention_timing_rows": attn_rows,
+        "qwen2-72b_timing_rows": qwen_rows,
+        "qwen2-72b_decode_layer (K1-K3)": qwen_layer,
+        "dense_attention_timing_rows": dense_attn_rows,
         "kernel_totals_decode_layer (K4-K6 at w4a4, K11 fp32 pool, K7/K8 "
         "and K9/K10 (w4a4) one MoE layer)": totals,
         "xnor_mismatch_prefill_layer": k2_prefill,

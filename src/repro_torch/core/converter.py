@@ -17,7 +17,9 @@ else (embedding, first conv, norms, biases, head) is left untouched.
 ``convert`` returns the new tree and a :class:`SizeReport` with the paper's
 accounting (k/32 of the fp32 bytes at k bits); :func:`model_nbytes` sizes
 a whole checkpoint; :func:`derive_draft` cuts and packs a speculative draft
-from a target LM.
+from a target LM.  ``convert(..., prefix=path)`` converts one subtree as it
+would inside the whole model, which ``models/lm.init_packed`` uses to pack
+a model one layer at a time.
 
 MoE expert stacks (a dict of ``up`` / ``gate`` / ``down`` tensors of shape
 ``(E, d_in, d_out)``) pack per expert along ``d_in`` into ``{name}_packed``
@@ -99,9 +101,13 @@ def _pack_flat(flat: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
 
 
 def convert(params: Pytree, policy: QuantPolicy, *,
-            keep_float: bool = False) -> tuple[Pytree, SizeReport]:
+            keep_float: bool = False,
+            prefix: str = "") -> tuple[Pytree, SizeReport]:
     """Pack all packable-policy dense and conv weights.  ``keep_float``
-    additionally retains the float weight next to the packed one."""
+    additionally retains the float weight next to the packed one.
+    ``prefix`` is the path of ``params`` inside its model (e.g.
+    ``"layers/3"``): a subtree converted under its path converts as it
+    would inside the whole tree."""
     report = SizeReport(leaves=[])
 
     def rec(node: Pytree, path: str) -> Pytree:
@@ -124,7 +130,7 @@ def convert(params: Pytree, policy: QuantPolicy, *,
             return _pack_experts(node, path, spec, report, keep_float)
         return {k: rec(v, f"{path}/{k}" if path else k) for k, v in node.items()}
 
-    return rec(params, ""), report
+    return rec(params, prefix), report
 
 
 def _pack_experts(node, path, spec: QuantSpec, report: SizeReport,
@@ -200,13 +206,20 @@ def derive_draft(params: Pytree, cfg, *, n_layers: int | None = None,
     ``n_layers`` field.  Returns ``(draft_params, draft_cfg, report)``."""
     policy = QuantPolicy.binary() if policy is None else policy
     total = len(params["layers"])
-    n = max(1, total // 4) if n_layers is None else n_layers
-    if not 1 <= n <= total:
-        raise ValueError(f"draft n_layers {n} not in [1, {total}]")
+    n = draft_depth(total, n_layers)
     sliced = {k: v for k, v in params.items() if k != "layers"}
     sliced["layers"] = list(params["layers"][:n])
     draft_params, report = convert(sliced, policy, keep_float=keep_float)
     return draft_params, dataclasses.replace(cfg, n_layers=n), report
+
+
+def draft_depth(total: int, n_layers: int | None = None) -> int:
+    """A draft's layer count: ``n_layers``, by default a quarter of the
+    target's ``total`` (at least one); raises outside ``[1, total]``."""
+    n = max(1, total // 4) if n_layers is None else n_layers
+    if not 1 <= n <= total:
+        raise ValueError(f"draft n_layers {n} not in [1, {total}]")
+    return n
 
 
 def model_nbytes(params: Pytree) -> int:

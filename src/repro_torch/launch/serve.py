@@ -13,11 +13,18 @@ model: at 1 bit it asserts identical greedy tokens (paper §2.2.2); at k
 bits, where packed and fake-quant agree per GEMM to fp32 rounding only, it
 reports how many tokens agree and where the streams first part.
 
-``--arch`` resolves through the registry: granite-3-2b, or the MoE
-deepseek-moe-16b / qwen2-moe-a2.7b, whose packed experts run on the
-expert-batched kernels (1-bit sign words on K7 / K8, DoReFa plane stacks
-on K9 / K10 with ``--quant wXaY``).  The model is initialised whole in
-fp32 before packing, so cut full-width deepseek-moe with ``--layers``.
+``--arch`` resolves through the registry: the dense granite-3-2b,
+deepseek-7b and qwen2-72b, or the MoE deepseek-moe-16b / qwen2-moe-a2.7b,
+whose packed experts run on the expert-batched kernels (1-bit sign words
+on K7 / K8, DoReFa plane stacks on K9 / K10 with ``--quant wXaY``).  The
+seeded model is built one block at a time (``lm.init_packed``): each block
+is drawn in fp32, packed and freed before the next, so only the packed
+model, its float embedding and head, and one float block are ever held.
+qwen2-72b at full width (290.8 GB in fp32, about 18.7 GB packed at 1 bit,
+both counted from its shapes) thus serves on one 80 GB card without
+cutting depth; ``--layers`` still cuts it.  ``--check-fakequant`` serves
+the float model too: it draws the whole float model again from the seed,
+so it is limited by the model's fp32 bytes.
 
 ``--packed PATH`` serves a packed checkpoint instead of a seeded model:
 the ``.npz`` that ``python -m repro_torch.launch.train --export-packed`` (or
@@ -46,12 +53,14 @@ retires a slot the step it emits that token, and ``--temperature`` samples
 
 ``--draft w1a1 --spec-len s`` turns on speculative decoding: the leading
 ``--draft-layers`` layers (default a quarter) of the seeded float model,
-packed to 1 bit (``converter.derive_draft``; ``--draft fp`` keeps them
-float), propose ``s`` tokens a round and the target verifies them in one
+packed to 1 bit (the draft ``converter.derive_draft`` cuts; ``--draft fp``
+keeps them float), propose ``s`` tokens a round and the target verifies them in one
 window (``serve/engine.py``).  Greedy streams stay those of non-speculative
 serving, and a ``speculative:`` line reports the acceptance.  With
 ``--packed`` the draft still comes from the seeded init, as in the JAX
-launcher; the float model is freed once the draft is cut.
+launcher, and the seeded target's blocks are dropped as they are drawn.
+The draft's blocks are packed while ``lm.init_packed`` holds them in
+float, so a draft never needs the whole float model either.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
@@ -71,6 +80,12 @@ Example:
       --shared-prefix --fused-attn --kv-bits 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
       --smoke --device cpu --draft w1a1 --spec-len 2 --request-stream
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-7b \\
+      --backend mxu --prompts 4 --prompt-len 64 --cache-len 256
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-72b \\
+      --backend vpu --prompts 1 --prompt-len 8192 --cache-len 8448
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-72b \\
+      --smoke --device cpu --draft w1a1 --check-fakequant
 """
 
 from __future__ import annotations
@@ -232,32 +247,36 @@ def main(argv: list[str] | None = None) -> dict:
     if args.packed and args.check_fakequant:
         raise SystemExit("--check-fakequant needs the float model; a "
                          "--packed checkpoint holds packed words only")
-    params = None
-    if not args.packed or args.draft:
-        gen = torch.Generator(device=dev).manual_seed(args.seed)
-        params = lm_model.init(gen, cfg)
+    # the draft is cut from the seeded float blocks: a packed target cannot
+    # be re-sliced
+    n_draft = (converter.draft_depth(cfg.n_layers, args.draft_layers)
+               if args.draft else 0)
+    dpolicy = parse_quant("binary" if args.draft == "w1a1" else "fp")
+    dparams = None
+    if not args.packed or args.draft:  # one float block at a time
+        # a --packed target comes from its file: only the draft is kept
+        packed, report, dparams = lm_model.init_packed(
+            torch.Generator(device=dev).manual_seed(args.seed), cfg,
+            None if args.packed else policy, draft_layers=n_draft,
+            draft_policy=dpolicy)
+    # fake-quant serves the whole float model, drawn again from the seed
+    params = (lm_model.init(torch.Generator(device=dev).manual_seed(
+        args.seed), cfg) if args.check_fakequant else None)
     if args.packed:
         packed = load_packed(args.packed, packed_template(cfg, policy), dev)
         print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
               f"device {dev}, quant {args.quant}; loaded packed checkpoint "
               f"{args.packed}")
     else:
-        packed, report = converter.convert(params, policy)
         print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
               f"device {dev}, quant {args.quant}; packed {report.summary()}")
     draft = None
     if args.draft:
-        # cut from the float model: a packed target cannot be re-sliced
-        dpolicy = parse_quant("binary" if args.draft == "w1a1" else "fp")
-        dparams, dcfg, _ = converter.derive_draft(
-            params, cfg, n_layers=args.draft_layers, policy=dpolicy,
-            keep_float=args.draft == "fp")
+        dcfg = dataclasses.replace(cfg, n_layers=n_draft)
         draft = DraftModel(cfg=dcfg, params=dparams,
                            ctx=dataclasses.replace(ctx, policy=dpolicy))
         print(f"speculative draft: {dcfg.n_layers}/{cfg.n_layers} layers "
               f"({args.draft}), spec_len={args.spec_len}")
-    if not args.check_fakequant:
-        params = None  # the float model is no longer needed
 
     rng = np.random.default_rng(args.seed)
     n_req = 2 * args.prompts if args.request_stream else args.prompts

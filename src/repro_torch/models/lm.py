@@ -6,8 +6,10 @@ Block ``i`` gets its FFN from ``ffn_pattern`` (``"mlp"`` or ``"moe"``);
 ``first_dense_layers`` keeps a dense ``first_dense_mlp`` for the first
 layers of an MoE stack (deepseek-moe).  Every GEMM goes through
 ``QCtx.dense`` or the MoE's grouped GEMM, so one ``QuantPolicy`` turns the
-model into its BMXNet-binarized variant.  The hybrid / recurrent / vision
-members of the JAX pool wait for later slices.
+model into its BMXNet-binarized variant.  ``init_packed`` builds the
+converted model one block at a time, so a model whose fp32 weights exceed
+the card (qwen2-72b) is never whole in float.  The hybrid / recurrent /
+vision members of the JAX pool wait for later slices.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import converter
+from repro_torch.core.policy import QuantPolicy
 from repro_torch.core.qlayers import dense_init
 from repro_torch.nn import attention as attn_lib
 from repro_torch.nn import mlp as mlp_lib
@@ -63,18 +67,80 @@ class LMConfig:
 # --------------------------------------------------------------------------
 
 
+def _draw(gen: torch.Generator, cfg: LMConfig, dtype, place) -> Params:
+    """Draw ``cfg``'s params from ``gen`` in the one order every build
+    shares — the embedding, then block by block, then the head when it is
+    untied — and hand each top-level piece to ``place(path, node)`` as soon
+    as it is drawn (``path``: ``"embed"``, ``"layers/<i>"``,
+    ``"final_norm"``, ``"lm_head"``); the tree keeps what ``place``
+    returns."""
+    dev = gen.device
+    p: Params = {"embed": place("embed", embed_init(gen, cfg.padded_vocab,
+                                                    cfg.d_model, dtype))}
+    p["layers"] = [place(f"layers/{i}", _block_init(gen, i, cfg, dtype))
+                   for i in range(cfg.n_layers)]
+    p["final_norm"] = place("final_norm",
+                            norm_init(cfg.norm, cfg.d_model, device=dev))
+    if not cfg.tie_embeddings:
+        p["lm_head"] = place("lm_head", dense_init(
+            gen, cfg.d_model, cfg.padded_vocab, dtype=dtype))
+    return p
+
+
 def init(gen: torch.Generator, cfg: LMConfig,
          dtype=torch.float32) -> Params:
     """Random params at ``cfg``'s widths on ``gen``'s device, in the JAX
     package's layout (dense ``w`` is ``(d_in, d_out)``)."""
-    dev = gen.device
-    p: Params = {"embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype)}
-    p["layers"] = [_block_init(gen, i, cfg, dtype) for i in range(cfg.n_layers)]
-    p["final_norm"] = norm_init(cfg.norm, cfg.d_model, device=dev)
-    if not cfg.tie_embeddings:
-        p["lm_head"] = dense_init(gen, cfg.d_model, cfg.padded_vocab,
-                                  dtype=dtype)
-    return p
+    return _draw(gen, cfg, dtype, lambda path, node: node)
+
+
+def init_packed(gen: torch.Generator, cfg: LMConfig,
+                policy: QuantPolicy | None, *, draft_layers: int = 0,
+                draft_policy: QuantPolicy | None = None):
+    """``converter.convert(init(gen, cfg), policy)`` built one piece at a
+    time: each block is drawn in fp32, converted under its path and freed
+    before the next is drawn, so at most one float block exists at once
+    (with the float embedding and head, which the policy keeps float).  The
+    result equals the whole-model conversion bit for bit, and so does the
+    ``SizeReport`` (fp32 and packed bytes).
+
+    ``draft_layers > 0`` also converts blocks ``< draft_layers`` under
+    ``draft_policy`` (default ``QuantPolicy.binary()``) while they are
+    still float: the speculative draft ``converter.derive_draft(init(gen,
+    cfg), cfg, n_layers=draft_layers, policy=draft_policy)`` gives, sharing
+    the embedding, final norm and head tensors with the target.  Returns
+    ``(params, report, draft_params)``, ``draft_params`` None without a
+    draft.  ``policy`` None builds the draft alone, for a target that comes
+    from a packed checkpoint: every block is still drawn, so the draft is
+    the one the seed gives, and the target's blocks are dropped as they are
+    drawn (``params`` and ``report`` come back None)."""
+    if draft_layers:
+        converter.draft_depth(cfg.n_layers, draft_layers)
+        draft_policy = draft_policy or QuantPolicy.binary()
+    report = converter.SizeReport(leaves=[])
+    draft: Params = {"layers": []}
+
+    def place(path, node):
+        top, _, i = path.partition("/")
+        if draft_layers and (not i or int(i) < draft_layers):
+            d, _ = converter.convert(node, draft_policy, prefix=path)
+            if i:
+                draft["layers"].append(d)
+            else:
+                draft[top] = d
+        if policy is None:
+            return None
+        out, rep = converter.convert(node, policy, prefix=path)
+        report.leaves.extend(rep.leaves)
+        return out
+
+    params = _draw(gen, cfg, torch.float32, place)
+    # derive_draft's key order: the shared pieces, then the blocks
+    dparams = ({**{k: draft[k] for k in params if k != "layers"},
+                "layers": draft["layers"]} if draft_layers else None)
+    if policy is None:
+        return None, None, dparams
+    return params, report, dparams
 
 
 def _block_init(gen: torch.Generator, i: int, cfg: LMConfig,
@@ -317,6 +383,7 @@ def prefill(params: Params, cfg: LMConfig, ctx: QCtx, tokens: torch.Tensor,
                                         f"{path}/attn")
         attn_lib.CONTIGUOUS.fill(cache["layers"][i], k, v, positions)
         qg = q.reshape(b, s, acfg.n_kv_heads, acfg.groups, acfg.d_head)
+        # s <= full_attn_max_seq: _sdpa, else _sdpa_chunked (JAX's routing)
         out = attn_lib._full_sdpa(acfg, qg, k, v, positions, positions)
         out = out.reshape(b, s, acfg.n_heads * acfg.d_head)
         h = ctx.dense(blk["attn"]["o"], out.to(ctx.compute_dtype),

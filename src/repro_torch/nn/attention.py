@@ -15,8 +15,10 @@ per-row window starts on both layouts (the verify window and the draft's
 restart window) and ``truncate``, the per-row rollback that flips positions
 past a row's accepted length back to empty.
 
-Not in the port yet: ``_sdpa_chunked`` for prefill longer than
-``full_attn_max_seq``.
+Sequences longer than ``full_attn_max_seq`` (training forward and prefill)
+go through ``_sdpa_chunked``, an online softmax over query and KV chunks
+whose score memory is ``chunk_q * chunk_kv`` per head, in plain PyTorch as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -50,7 +52,10 @@ class AttnConfig:
     window: int | None = None  # sliding window; None = global
     causal: bool = True
     query_scale: float | None = None  # default d_head ** -0.5
+    # chunked-path knobs: longer sequences take _sdpa_chunked
     full_attn_max_seq: int = 4096
+    chunk_q: int = 512
+    chunk_kv: int = 1024
     # decode-attention execution (serving): route attn_decode / attn_window
     # through the flash-decode kernel (kernels/attn_decode.py) instead of
     # gather + _sdpa.  False keeps the gather path, the oracle the fused
@@ -135,13 +140,62 @@ def attn_forward(params: Params, x: torch.Tensor, positions: torch.Tensor,
 
 
 def _full_sdpa(cfg: AttnConfig, qg, k, v, q_pos, k_pos):
-    if max(qg.shape[1], k.shape[1]) > cfg.full_attn_max_seq:
-        raise NotImplementedError(
-            f"sequence longer than full_attn_max_seq={cfg.full_attn_max_seq} "
-            "needs _sdpa_chunked, which the port does not have yet")
-    return _sdpa(cfg, qg, k, v, _mask(cfg, q_pos, k_pos))
+    """Full-sequence attention: ``_sdpa`` up to ``full_attn_max_seq``
+    positions, ``_sdpa_chunked`` beyond (the JAX package's routing)."""
+    if max(qg.shape[1], k.shape[1]) <= cfg.full_attn_max_seq:
+        return _sdpa(cfg, qg, k, v, _mask(cfg, q_pos, k_pos))
+    return _sdpa_chunked(cfg, qg, k, v, q_pos, k_pos)
 
 
+def _sdpa_chunked(cfg: AttnConfig, q, k, v, q_pos, k_pos):
+    """Online-softmax attention, O(chunk_q * chunk_kv) score memory.
+
+    Same signature and semantics as ``_sdpa`` with the mask derived from
+    positions; both sequence axes run in chunks (the flash-attention
+    recurrence in plain PyTorch, as JAX's pure-jnp version).  KV is padded
+    to a chunk multiple with pad positions -1.  A row that sees no key in
+    any chunk ends as the mean of the chunks' values, as in JAX.
+    """
+    b, sq, kvh, g, dh = q.shape
+    sk = k.shape[1]
+    cq, ck = min(cfg.chunk_q, sq), min(cfg.chunk_kv, sk)
+    if sq % cq:
+        raise ValueError(f"_sdpa_chunked: {sq} query positions are not a "
+                         f"multiple of chunk_q {cq}")
+    if sk % ck:  # pad KV to a chunk multiple; pad slots masked via pos=-1
+        pad = ck - sk % ck
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = torch.nn.functional.pad(k_pos, (0, pad), value=-1)
+        sk += pad
+    q32 = q.to(torch.float32)
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=q.device)
+    outs = []
+    for i in range(0, sq, cq):
+        qi, qp = q32[:, i:i + cq], q_pos[:, i:i + cq]
+        m_run = torch.full((b, kvh, g, cq), NEG_INF, dtype=torch.float32,
+                           device=q.device)
+        l_run = torch.zeros((b, kvh, g, cq), dtype=torch.float32,
+                            device=q.device)
+        acc = torch.zeros((b, kvh, g, cq, dh), dtype=torch.float32,
+                          device=q.device)
+        for j in range(0, sk, ck):
+            ki, vi, kp = k[:, j:j + ck], v[:, j:j + ck], k_pos[:, j:j + ck]
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qi,
+                             ki.to(torch.float32)) * cfg.scale
+            s = softcap(s, cfg.logit_softcap)
+            valid = _mask(cfg, qp, kp)  # (b, cq, ck)
+            s = torch.where(valid[:, None, None, :, :], s, neg)
+            m_new = torch.maximum(m_run, s.amax(dim=-1))
+            alpha = torch.exp(m_run - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l_run = l_run * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhgqk,bkhd->bhgqd", p.to(vi.dtype), vi).to(torch.float32)
+            m_run = m_new
+        out = acc / torch.clamp(l_run, min=1e-37)[..., None]
+        outs.append(out.permute(0, 3, 1, 2, 4))  # (b, cq, kvh, g, dh)
+    return torch.cat(outs, dim=1)
 
 
 # --------------------------------------------------------------------------

@@ -628,6 +628,75 @@ def test_smoke_serving_packed_equals_fakequant_on_card(cuda, backend):
         np.testing.assert_array_equal(on_card[rid], fake[rid])
 
 
+@pytest.mark.parametrize("arch", ["deepseek-7b", "qwen2-72b"])
+@pytest.mark.parametrize("backend", ["vpu", "mxu"])
+def test_dense_smoke_serving_on_card(cuda, arch, backend):
+    """The dense deepseek-7b / qwen2-72b smoke configs on the card, with
+    ``full_attn_max_seq`` lowered so that every prefill takes
+    ``_sdpa_chunked``: ``lm.init_packed`` equals the whole model's
+    conversion bit for bit, and the packed greedy streams equal
+    fake-quant's (§2.2.2), each packed GEMM through its kernel."""
+    import dataclasses
+
+    spec = registry.get(arch)
+    cfg = spec.smoke
+    cfg = dataclasses.replace(cfg, attn=dataclasses.replace(
+        cfg.attn, full_attn_max_seq=4, chunk_q=1, chunk_kv=4))
+    policy = QuantPolicy.binary()
+    params = lm.init(torch.Generator(device=cuda).manual_seed(0), cfg)
+    want, _ = converter.convert(params, policy)
+    packed, _, _ = lm.init_packed(torch.Generator(device=cuda).manual_seed(0),
+                                  cfg, policy)
+    for a, b in zip(tree_leaves(packed), tree_leaves(want)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    ctx = QCtx(policy=policy, compute_dtype=torch.float32,
+               gemm_config=dispatch.GemmConfig(backend=backend))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in (5, 5, 9, 3)]
+
+    def serve(p):
+        eng = engine.Engine(spec, cfg, ctx, p, engine.EngineConfig(
+            batch=2, cache_len=32, max_new_tokens=6))
+        sched = engine.Scheduler(eng)
+        for pr in prompts:
+            sched.submit(engine.Request(prompt=pr))
+        return sched.run()
+
+    _cuda.reset_launches()
+    on_card = serve(packed)
+    assert _cuda.LAUNCHES["pack_sign"] > 0
+    assert _cuda.LAUNCHES[{"vpu": "xnor_mismatch",
+                           "mxu": "xnor_dot_mxu"}[backend]] > 0
+    fake = serve(params)
+    assert sorted(on_card) == sorted(fake) == [0, 1, 2, 3]
+    for rid in on_card:
+        np.testing.assert_array_equal(on_card[rid], fake[rid])
+
+
+def test_sdpa_chunked_on_card_matches_cpu(cuda):
+    """``_sdpa_chunked`` on the card against the CPU and against ``_sdpa``
+    (padded KV, a -1 key, a window; rtol = atol = 1e-5, fp32 attention
+    summed in another order)."""
+    acfg = attention.AttnConfig(d_model=512, n_heads=8, n_kv_heads=2,
+                                d_head=64, window=40, chunk_q=16,
+                                chunk_kv=24)
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn((2, 64, 2, 4, 64), generator=g)
+    k = torch.randn((2, 70, 2, 64), generator=g)
+    v = torch.randn((2, 70, 2, 64), generator=g)
+    pos = torch.arange(70, dtype=torch.int32).expand(2, 70).clone()
+    pos[:, 5] = -1
+    q_pos = pos[:, 6:].clone()
+    want = attention._sdpa_chunked(acfg, q, k, v, q_pos, pos)
+    got = attention._sdpa_chunked(acfg, *(t.to(cuda) for t in
+                                          (q, k, v, q_pos, pos)))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    full = attention._sdpa(acfg, *(t.to(cuda) for t in (q, k, v)),
+                           attention._mask(acfg, q_pos.to(cuda), pos.to(cuda)))
+    torch.testing.assert_close(got, full, rtol=1e-5, atol=1e-5)
+
+
 def test_smoke_serving_w4a4_vpu_equals_mxu_on_card(cuda):
     """DoReFa w4a4 on the card: ``vpu`` (-> vpu-k4) and ``mxu`` (-> mxu-k4)
     compute the same integer S and the same dequant, so their greedy

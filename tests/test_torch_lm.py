@@ -200,7 +200,11 @@ def test_slice_3_paths_raise():
     """Slice 3's paged / fused / quantized-KV half is ported and
     constructs, and so is its speculative half (ROADMAP A11: the window
     write and ``truncate``, held against JAX in tests/test_torch_spec.py);
-    ``_sdpa_chunked`` still raises, naming what is missing."""
+    and no path raises any more: above ``full_attn_max_seq``
+    ``_full_sdpa`` takes ``_sdpa_chunked``, which equals ``_sdpa`` within
+    fp32 rounding (rtol = atol = 1e-5: both are fp32 softmax attention,
+    the chunked one summed in another order; held against JAX in
+    tests/test_torch_dense.py)."""
     acfg = registry.get("granite-3-2b").smoke.attn
     import dataclasses
 
@@ -213,9 +217,14 @@ def test_slice_3_paths_raise():
     assert cache["slot_pos"][0].tolist() == [-1, -1, 2, 3, -1, -1, -1, -1]
     kv.truncate(cache, torch.tensor([3]))
     assert cache["slot_pos"][0].tolist() == [-1, -1, 2, -1, -1, -1, -1, -1]
-    long_cfg = dataclasses.replace(acfg, full_attn_max_seq=4)
-    q = torch.zeros((1, 5, acfg.n_kv_heads, acfg.groups, acfg.d_head))
-    k = torch.zeros((1, 5, acfg.n_kv_heads, acfg.d_head))
-    pos = torch.arange(5)[None]
-    with pytest.raises(NotImplementedError, match="_sdpa_chunked"):
-        attention._full_sdpa(long_cfg, q, k, k, pos, pos)
+    long_cfg = dataclasses.replace(acfg, full_attn_max_seq=4, chunk_q=2,
+                                   chunk_kv=3)
+    rng = np.random.default_rng(7)
+    q = torch.from_numpy(rng.standard_normal(
+        (1, 6, acfg.n_kv_heads, acfg.groups, acfg.d_head), np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal(
+        (1, 5, acfg.n_kv_heads, acfg.d_head), np.float32)) for _ in range(2))
+    q_pos, k_pos = torch.arange(6)[None], torch.arange(5)[None]
+    got = attention._full_sdpa(long_cfg, q, k, v, q_pos, k_pos)
+    want = attention._sdpa(acfg, q, k, v, attention._mask(acfg, q_pos, k_pos))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
